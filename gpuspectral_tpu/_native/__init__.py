@@ -1,8 +1,9 @@
 """ctypes bindings for the native IO library (native/).
 
 Provides `lib` (the loaded shared library) or None when unavailable; callers
-fall back to pure-Python implementations.  Build with `make -C native` (the
-scene loader will also attempt an automatic build once).
+fall back to pure-Python implementations.  The library is not tracked: the
+first use builds it from native/ with native/Makefile into this directory
+(`make -C native` does the same by hand).
 """
 
 from __future__ import annotations
@@ -18,22 +19,30 @@ _REPO = os.path.dirname(os.path.dirname(_DIR))
 lib = None
 
 
+def _build() -> None:
+    """Compile into a per-process temporary name and rename it into place,
+    so concurrent first uses never load a half-written library."""
+    native = os.path.join(_REPO, "native")
+    if not os.path.exists(os.path.join(native, "Makefile")):
+        return
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["make", "-C", native, "-B", f"OUT={tmp}"],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def _try_load():
     global lib
     if lib is not None:
         return lib
     if not os.path.exists(_SO):
-        mk = os.path.join(_REPO, "native", "Makefile")
-        if os.path.exists(mk):
-            try:
-                subprocess.run(
-                    ["make", "-C", os.path.dirname(mk)],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception:
-                return None
+        _build()
     if not os.path.exists(_SO):
         return None
     try:

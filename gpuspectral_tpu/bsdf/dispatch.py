@@ -2,9 +2,9 @@
 
 Behavior spec: the eight Sample/Eval pairs in rayhit.rchit:341-617 and the
 X-macro dispatch in rayhit.rchit:630-654.  The reference dispatches with a
-per-thread `switch`; SIMT threads diverge per type.  On TPU we evaluate every
+per-thread `switch`; SIMT threads diverge per type.  Here we evaluate every
 type's (cheap, purely vector) math for the whole ray batch and select by type
-mask — branch-free lockstep work that the VPU executes at full width.  When
+mask — branch-free lockstep work that XLA fuses into elementwise loops.  When
 ray queues are sorted by BSDF type (integrator/wavefront), XLA's fusion still
 keeps this memory-bound-free; a per-type `lax.switch` specialization is a
 later optimization.

@@ -1,8 +1,8 @@
 """BSDF parameter table: struct-of-arrays storage for the 8 BSDF types.
 
 The reference keeps one C array per BSDF type plus a 16-bit-type/16-bit-index
-packed handle (renderer/Scene.h:84-97,166-181, assets/shaders/BSDF.inc).  On
-TPU we instead pack every BSDF into one dense float row so a surface hit is a
+packed handle (renderer/Scene.h:84-97,166-181, assets/shaders/BSDF.inc).  We
+instead pack every BSDF into one dense float row so a surface hit is a
 single gather and dispatch is a vectorized select — no pointer chasing.
 
 Row layout (NUM_PARAMS = 12 floats), by type:

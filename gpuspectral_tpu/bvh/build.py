@@ -1,24 +1,18 @@
-"""LBVH construction: Morton-ordered triangle clusters + implicit binary tree.
+"""BVH construction: SAH leaf order + implicit binary tree over clusters.
 
 This replaces what the Vulkan driver gave the reference in hardware
-(`vkCmdBuildAccelerationStructuresKHR`, backend/vulkan/VulkanRays.cpp:6-86) —
-but the *shape* of the structure is chosen for TPU traversal, not for an RT
-core:
+(`vkCmdBuildAccelerationStructuresKHR`, backend/vulkan/VulkanRays.cpp:6-86),
+shaped for the packet traversal in bvh/traverse.py:
 
-  * Triangles are sorted by the Morton code of their centroid (the classic
-    LBVH ordering) and grouped into fixed-size clusters of LEAF_SIZE
-    contiguous triangles.  A leaf hit therefore tests a *dense contiguous
-    block* — exactly the memory pattern the VPU wants, no per-triangle
-    gathers.
+  * Triangles are ordered by a binned-SAH build (bvh/sah.py; a Morton
+    centroid sort is the alternative) and grouped into fixed-size clusters
+    of LEAF_SIZE slots.  A leaf hit tests a dense contiguous block of
+    triangles, with no per-triangle gathers.
   * Above the clusters sits an implicit complete binary tree (node i's
-    children are 2i+1 / 2i+2): no child pointers, no variable topology —
-    traversal control flow is scalar and branch-free-ish, and the whole node
-    array is two dense (N,3) float arrays (min/max).
+    children are 2i+1 / 2i+2): no child pointers, no variable topology, and
+    the whole node array is two dense (N,3) float arrays (min/max).
   * Build runs once at scene load in numpy (static scenes, like the
     reference's BLAS cache, renderer/Renderer.cpp:122-131).
-
-The quality loss vs a SAH tree is acceptable because leaves are wide: the
-expensive part on TPU is divergence, not extra AABB tests.
 """
 
 from __future__ import annotations
@@ -29,35 +23,13 @@ import numpy as np
 
 LEAF_SIZE = 16  # slots per leaf (sah mode: real leaves of <= this, padded)
 
-# Slot-mode bins: maximal SAH subtrees of <= bin_target triangles, each
-# occupying exactly bin_target slots (bvh/sah.sah_cuts).  A cut node IS a
-# node of the SAH tree, so bin AABBs are as tight as the build could make
-# them — measured (tools/sim_bins.py, staircase2 tile blocks): ftb
-# rounds/block 5.5 -> 4.0 and votes/ray 1.5 -> 0.8 vs grouping 8
-# consecutive leaves.
-#
-# Bin size trades per-ray culling precision against per-round fixed cost
-# (pick chains, candidate-matrix scans, streaming DMA latency — all paid
-# once per bin swept).  Measured via tools/sim_bins.py on staircase2:
-# 256-slot bins halve the front-to-back round count of 128-slot bins for
-# both tile-coherent and incoherent ray sets at near-equal swept slots;
-# 512-slot bins quarter the round count (and quadruple streaming DMA size)
-# for ~20% more swept slots — the right trade when each round pays an HBM
-# round-trip.
-BIN_TARGET = 128  # small VMEM-resident scenes (round-5 A/B on staircase2:
-# 128-slot bins at 8 bins/round beat 256-slot/2 and 512-slot/1 — finer
-# front-to-back culling cuts swept slots faster than the per-round pick
-# overhead grows; tools/bench_kernel_true.py: 74.8 -> 66.1 ms/frame)
-BIN_TARGET_MID = 256  # large resident scenes (100k+ tris, table <= the
-# measured ~100 MB VMEM budget): the bin count runs to 1-2k, so the
-# per-round candidate scan scales with c_pad and 128-slot bins invert the
-# trade (round-5 A/B on coffee resident, 128^2@2spp d8: 256-slot bins at
-# 2 bins/round = 3.82 Mrays/s vs 3.12 at 512/1 and ~2.6 at 128/8)
-BIN_TARGET_STREAM = 512  # HBM-streaming scenes (table too big for VMEM):
-# fat bins quarter the per-round DMA count at ~128 KB per copy
+# Slot-mode subtree cuts: maximal SAH subtrees of <= BIN_TARGET triangles,
+# each occupying exactly BIN_TARGET slots (bvh/sah.sah_cuts), whose leaves
+# are the fixed LEAF_SIZE-slot cuts of the subtree.
+BIN_TARGET = 128
 
 # Below this many triangles the sah build keeps the triangle arrays dense
-# (fixed-size cuts of the DFS order, no -1 slots): small scenes are served by
+# (fixed-size cuts of the SAH order, no -1 slots): small scenes are served by
 # the brute-force megakernel whose loop bound is the REAL triangle count
 # (integrator/mega.py MEGA_MAX_TRIS), and leaf-AABB tightness only pays on
 # BVH-scale scenes.  Tests exercise slot mode by lowering this.
@@ -111,9 +83,8 @@ def build_bvh(
     real.  Returns the BVH plus the permutation that must be applied to all
     per-triangle scene arrays (pad triangles sort to the end).
 
-    order: "sah" (binned-SAH DFS preorder, bvh/sah.py — default; measured
-    ~4x fewer cluster votes per ray than Morton on staircase2) or "morton"
-    (classic LBVH centroid sort).
+    order: "sah" (binned-SAH DFS preorder, bvh/sah.py — default) or
+    "morton" (classic LBVH centroid sort).
     """
     t_total = tri_pos.shape[0]
     real = tri_pos[:num_tris]
@@ -133,9 +104,8 @@ def build_bvh(
         # Real SAH leaves, slot-padded: each variable-size leaf (<= leaf_size
         # tris) occupies exactly leaf_size slots; unused slots carry -1 in the
         # permutation (scene packing gives them degenerate all-zero Woop rows
-        # that can never hit).  Fixed-size cuts of the DFS order measure
-        # ~5-10x more slab votes per ray than the true leaves (staircase2),
-        # so the padding buys its memory back many times over in culling.
+        # that can never hit).  Real leaves are tighter than fixed-size cuts
+        # of the DFS order, which pays for the padding in culled nodes.
         from .sah import sah_cuts
 
         tri_order, _lsizes, bsizes = sah_cuts(
@@ -159,10 +129,7 @@ def build_bvh(
             # SAH subtree, <= BIN_TARGET of them) sit contiguously at the bin
             # start, -1 padding after.  Leaves are the fixed leaf_size-slot
             # cuts of each bin (8 per bin at the defaults) — fixed cuts are
-            # only mildly loose *within* a <= BIN_TARGET-tri subtree, and the
-            # bin boxes (what the default ftb kernel tests) are exact SAH
-            # node AABBs.  binned.build_bins regroups leaf_size*g-slot runs,
-            # which lands exactly on bin boundaries.
+            # only mildly loose *within* a <= BIN_TARGET-tri subtree.
             n_bins = len(bsizes)
             leaves_per_bin = bin_target // leaf_size
             n_clusters_real = n_bins * leaves_per_bin

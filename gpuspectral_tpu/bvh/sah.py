@@ -1,18 +1,16 @@
-"""Binned-SAH triangle ordering for the cluster-sweep BVH.
+"""Binned-SAH triangle ordering for the BVH build.
 
-The cluster sweep (bvh/cluster_sweep.py) tests fixed 64-triangle runs of the
-*sorted* triangle array, so its efficiency is set entirely by how spatially
-tight contiguous runs are.  Morton order (bvh/build.py) is cheap but loose:
-measured on staircase2 (31k tris, 512 clusters), a ray's slab test passes
-~34 cluster AABBs — an order of magnitude above a quality tree.  This module
-orders triangles by the depth-first traversal of a binned-SAH BVH (the
-standard top-down build, e.g. Wald 2007, binned surface-area heuristic):
-subtrees become contiguous runs, so the fixed-size clusters cut from the
-order inherit SAH tightness.
+The packet traversal (bvh/traverse.py) tests fixed-size runs of the
+*sorted* triangle array, so its efficiency is set by how spatially tight
+contiguous runs are.  Morton order (bvh/build.py) is cheap but loose.  This
+module orders triangles by the depth-first traversal of a binned-SAH BVH
+(the standard top-down build, e.g. Wald 2007, binned surface-area
+heuristic): subtrees become contiguous runs, so the fixed-size clusters cut
+from the order inherit SAH tightness.
 
 This replaces the build-quality half of what `vkCmdBuildAccelerationStructuresKHR`
 (reference: backend/vulkan/VulkanRays.cpp:6-86, PREFER_FAST_TRACE) does in
-the driver; the traversal half lives in the sweep kernels.
+the driver; the traversal half lives in bvh/traverse.py.
 
 Pure numpy, runs once at scene load.  O(N log N) with vectorized binning.
 """

@@ -1,7 +1,7 @@
 """BVH packet traversal (pure-JAX/XLA version).
 
-This is the TPU re-thinking of `traceRayEXT`: instead of one divergent tree
-walk per SIMT thread (the GPU model), a *packet* of rays walks the tree
+This is a data-parallel re-thinking of `traceRayEXT`: instead of one
+divergent tree walk per SIMT thread, a *packet* of rays walks the tree
 together with a single scalar stack:
 
   * traversal decisions are packet-wide ("does ANY live ray hit this
@@ -9,13 +9,12 @@ together with a single scalar stack:
     scalar predicates, which XLA compiles to real branches, skipping
     untouched subtrees entirely;
   * all per-ray work (slab tests, leaf triangle tests) is dense vector math
-    across the packet — full VPU width, no gathers: a leaf is LEAF_SIZE
-    *contiguous* Morton-sorted triangles fetched with one dynamic_slice.
+    across the packet, no gathers: a leaf is LEAF_SIZE *contiguous*
+    triangles fetched with one dynamic_slice.
 
 Packet coherence determines culling efficiency: primary rays come from image
 tiles (coherent); bounce rays benefit from the integrator's Morton sorting.
-The Pallas kernel in bvh/kernels.py implements the same algorithm with
-explicit VMEM staging; this module is the portable reference + CPU path.
+This module is the BVH path on every platform.
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
 """Inverse rendering: recover BSDF/emitter parameters from target images.
 
-The north-star capability (BASELINE.json config 5): differentiate the
-renderer end-to-end and optimize scene parameters by gradient descent.
+Differentiate the renderer end-to-end and optimize scene parameters by gradient descent.
 Path-replay backprop comes from the remat-ed bounce loop + counter-based RNG
 (see diff/gradcheck.py); this module adds the optimization loop, parameter
 constraints, checkpointing, and metrics.
@@ -150,55 +149,10 @@ def _make_step(scene, cfg, mask, lo, hi, target, opt, optimize_emission):
             sc = scatter_light_emission(sc, unconstrained_to_emission(ov["v"]))
         return sc
 
-    from ..integrator.mega_grad import (
-        mega_bvh_grad_eligible, mega_grad_eligible, render_mega_bvh_diff,
-        render_mega_diff)
-
-    on_tpu = jax.default_backend() == "tpu"
-    use_mega = mega_grad_eligible(scene, cfg) and on_tpu
-    # BVH scenes: the fused-BVH replay pair (diffuse-row kd + emission
-    # gradients — exactly what this optimizer tunes)
-    use_mega_bvh = (not use_mega and on_tpu
-                    and mega_bvh_grad_eligible(scene, cfg))
-    if use_mega_bvh:
-        import numpy as np
-
-        from ..integrator.mega_grad import (
-            MAX_GRAD_LIGHTS, mega_bvh_grad_rows)
-
-        # static row tuple from the CONCRETE scene (inside jit the scene is
-        # traced and the rows could not be derived)
-        bvh_grad_rows = mega_bvh_grad_rows(scene)
-        # coverage gate (ADVICE r4, high): the fused replay pair only
-        # produces gradients for bvh_grad_rows' kd columns and — when the
-        # scene's light count fits the kernel accumulator — emitter
-        # radiance.  If the optimizable set is any wider, those entries
-        # would silently receive exact zeros and never train; use the XLA
-        # scan (full autodiff coverage) instead.
-        m = np.asarray(mask) > 0
-        covered = np.zeros(m.shape[0], bool)
-        covered[list(bvh_grad_rows)] = True
-        rows_ok = not m[~covered].any()
-        kd_cols_only = not m[:, 3:].any()
-        em_ok = ((not optimize_emission)
-                 or scene.num_lights <= MAX_GRAD_LIGHTS)
-        if not (rows_ok and kd_cols_only and em_ok):
-            use_mega_bvh = False
-
     @partial(jax.jit, donate_argnames=("opt_vars", "opt_state"))
     def step(opt_vars, opt_state, timestamp0):
         def loss_fn(ov):
             sc = to_physical(ov)
-            if use_mega or use_mega_bvh:
-                # fused forward + path-replay backward kernels (same
-                # per-sample estimator as the scan below)
-                if use_mega:
-                    img = render_mega_diff(sc, cfg, timestamp0)
-                else:
-                    img = render_mega_bvh_diff(sc, cfg, timestamp0,
-                                               grad_rows=bvh_grad_rows)
-                img = img.reshape(n_pixels, 3)
-                return jnp.mean((img - target_flat) ** 2)
 
             def body(acc, s):
                 rad, _ = render_sample(sc, cfg, pix, timestamp0 + s, differentiable=True)

@@ -1,7 +1,7 @@
 """Engine: the top-level context object (reference parity layer).
 
 Mirrors the reference's Engine/Window/Renderer trio (engine/Engine.h:26-38,
-engine/Window.h:23, renderer/Renderer.h:44-57) in headless TPU form:
+engine/Window.h:23, renderer/Renderer.h:44-57) in headless form:
 
   * Engine owns the device context and asset-path resolution
     (Engine::assetPath, Engine.cpp:12-15),
@@ -14,7 +14,7 @@ engine/Window.h:23, renderer/Renderer.h:44-57) in headless TPU form:
     "rt pass", "blit pass"; SURVEY.md §5.1) so traces line up.
 
 The Vulkan frame machinery (fences, double-buffered inflight frames,
-framegraphs) has no TPU analogue to build: XLA pipelines the async dispatch
+framegraphs) has no analogue to build here: XLA pipelines the async dispatch
 (`render_step` is donated + jit-compiled once, successive frames overlap
 host work with device compute exactly like MAX_INFLIGHTS=2 did).
 """

@@ -1,65 +1,30 @@
 from .path_tracer import render_image, trace_rays, render_sample  # noqa: F401
 
 
-def render_image_stats_auto(scene, cfg, timestamp0: int = 0):
-    """Render (H, W, 3) + total rays traced, picking the fastest integrator.
-
-    On TPU, eligible (scene, cfg) pairs (brute-force scale, untextured,
-    uniform light selection) run the fused Pallas megakernel (integrator/
-    mega.py, measured ~12x the XLA wavefront on Cornell 512^2); everything
-    else — BVH scenes, textures, gradients — uses the XLA wavefront.
-    `cfg.intersector == "mega"` forces the megakernel (interpreted off-TPU,
-    for tests)."""
+def use_megakernel(scene, cfg, platform=None) -> bool:
+    """The one integrator dispatch decision: the brute-force megakernel
+    (integrator/mega.py) on a GPU when it covers (scene, cfg), the XLA
+    wavefront otherwise.  `platform` defaults to the platform of the first
+    JAX device."""
     import jax
+
+    from .mega import mega_eligible
+
+    if platform is None:
+        platform = jax.devices()[0].platform
+    return platform == "gpu" and mega_eligible(scene, cfg)
+
+
+def render_image_stats_auto(scene, cfg, timestamp0: int = 0):
+    """Render (H, W, 3) + total rays traced through the integrator
+    `use_megakernel` picks."""
     import jax.numpy as jnp
 
-    from .mega import mega_eligible, render_mega
-    from .mega_bvh import mega_bvh_eligible, render_mega_bvh
+    from .mega import render_mega
     from .path_tracer import render_image_stats
 
-    interpret = jax.default_backend() != "tpu"
-    forced = cfg.intersector == "mega"
-    if mega_eligible(scene, cfg) and (
-        forced or (cfg.intersector == "auto" and jax.default_backend() == "tpu")
-    ):
-        return render_mega(scene, cfg, timestamp0, interpret=interpret)
-    # fused-BVH megakernel: auto on TPU (measured 3.2 vs 1.3 Mrays/s for the
-    # XLA wavefront on staircase2), or forced via intersector="mega_bvh"
-    # (interpreted off-TPU, for tests)
-    if mega_bvh_eligible(scene, cfg) and (
-        cfg.intersector == "mega_bvh"
-        or (cfg.intersector == "auto" and jax.default_backend() == "tpu")
-    ):
-        # Host-side spp batching on real TPU: one persistent-kernel launch
-        # covers the whole frame, and at the declared 64 spp a BVH-scale
-        # frame is an 80+ second single execution — past the TPU runtime's
-        # watchdog (measured: staircase2/living-room@64spp kill the worker,
-        # coffee's 41 s survives).  Chunks are disjoint progressive-frame
-        # ranges, so the summed estimator is identical to one launch.
-        chunk = 0
-        if not interpret and cfg.spp > 8:
-            for c in (8, 4, 2):
-                if cfg.spp % c == 0:
-                    chunk = c
-                    break
-        if chunk:
-            sub = cfg.replace(spp=chunk)
-            total, rays = None, None
-            for i in range(cfg.spp // chunk):
-                img, nr = render_mega_bvh(scene, sub,
-                                          timestamp0 + i * chunk,
-                                          interpret=interpret)
-                total = img if total is None else total + img
-                rays = nr if rays is None else rays + nr
-            return total / (cfg.spp // chunk), rays
-        return render_mega_bvh(scene, cfg, timestamp0, interpret=interpret)
-    if jax.default_backend() == "tpu":
-        # host-side batch loop: bounds single-execution device time (the TPU
-        # runtime kills executions running for minutes — big slot-mode
-        # scenes under one lax.map crashed the worker)
-        from .path_tracer import render_image_stats_host
-
-        return render_image_stats_host(scene, cfg, timestamp0)
+    if use_megakernel(scene, cfg):
+        return render_mega(scene, cfg, timestamp0)
     return render_image_stats(scene, cfg, jnp.uint32(timestamp0))
 
 

@@ -13,11 +13,11 @@ Mapping follows Mitsuba's equirectangular convention (Y-up):
     v  = acos(clamp(d'.y)) / pi
 
 Bilinear filtering with wrap addressing in u and clamp in v.  On the XLA
-wavefront the lookup is a gather per miss lane; the fused Pallas megakernels
-shade constant emitters from SMEM scalars and small lat-long maps
-(<= mega.MEGA_ENV_MAX_TEXELS texels) through one-hot MXU contractions over a
-texel table (mega._pack_env_table / make_env_tab_fns) — bigger maps fall
-back to the wavefront.
+wavefront the lookup is a gather per miss lane; the GPU megakernel shades
+constant emitters from scalars and small lat-long maps
+(<= mega.MEGA_ENV_MAX_TEXELS texels) through per-lane gathers from a texel
+table (mega._pack_env_table / make_env_tab_fns) — bigger maps run on the
+wavefront.
 """
 
 from __future__ import annotations
@@ -26,13 +26,12 @@ import jax.numpy as jnp
 
 
 def acos_fast(x):
-    """Mosaic-lowerable arccos (Abramowitz & Stegun 4.4.45 polynomial,
-    |err| <= 6.8e-5 rad — far below a texel at any practical map size).
+    """Polynomial arccos (Abramowitz & Stegun 4.4.45, |err| <= 6.8e-5 rad —
+    far below a texel at any practical map size).
 
-    None of arccos/arcsin/arctan lower in Pallas TPU (probed round 5), so
-    the env mapping uses THIS implementation on BOTH the XLA wavefront and
-    the fused kernels: texel decisions agree across paths and interpret-
-    mode parity tests hold bitwise."""
+    The env mapping uses THIS implementation on BOTH the XLA wavefront and
+    the megakernel, so texel decisions agree across paths and
+    interpret-mode parity tests hold bitwise."""
     ax = jnp.abs(x)
     p = jnp.float32(-0.0187293)
     p = p * ax + jnp.float32(0.0742610)
@@ -47,8 +46,7 @@ def _dir_uv(ex, ey, ez):
 
     The azimuth uses sign(ex) * arccos(-ez / r) instead of
     atan2(ex, -ez): identical a.e. (ex == 0 resolves to the same 0 / pi
-    branch), and the shared polynomial arccos lowers in Mosaic while
-    atan2 does not — the fused kernels run this exact op sequence, so
+    branch), and the megakernel runs this exact op sequence, so
     interpret-mode parity tests hold bitwise."""
     r = jnp.sqrt(ex * ex + ez * ez)
     c = jnp.clip(-ez / jnp.maximum(r, 1e-20), -1.0, 1.0)
@@ -69,8 +67,8 @@ def eval_envmap(envmap, rot, direction):
     """
     h, w = envmap.shape[0], envmap.shape[1]
     dx, dy, dz = direction[..., 0], direction[..., 1], direction[..., 2]
-    # explicit products, not a matmul: MXU f32 passes quantize to bf16 and
-    # direction error shows up as visible seam wobble near the poles
+    # explicit products, not a matmul: a TF32 matmul would quantize the
+    # direction, and that error shows up as seam wobble near the poles
     ex = rot[0, 0] * dx + rot[0, 1] * dy + rot[0, 2] * dz
     ey = rot[1, 0] * dx + rot[1, 1] * dy + rot[1, 2] * dz
     ez = rot[2, 0] * dx + rot[2, 1] * dy + rot[2, 2] * dz
@@ -130,13 +128,13 @@ def sample_envmap(envmap, rot, cdf, pdf_map, u1, u2):
     c1 = jnp.cos(jnp.pi * (y.astype(jnp.float32) + 1.0) / h)
     cos_t = c0 + jv * (c1 - c0)
     # cos/sin of theta via identities instead of arccos-then-sin/cos:
-    # exact where it matters and Mosaic-lowerable (see acos_fast note)
+    # exact where it matters and the same ops as the megakernel
     ct = jnp.clip(cos_t, -1.0, 1.0)
     st = jnp.sqrt(jnp.maximum(1.0 - ct * ct, 0.0))
     e0, e1, e2 = st * jnp.sin(phi), ct, -st * jnp.cos(phi)
     # env->world: rot is world->env, orthonormal, so inverse = transpose.
-    # Explicit products in a fixed order (not a matmul) so the fused
-    # kernels reproduce the direction bitwise in interpret mode.
+    # Explicit products in a fixed order (not a matmul) so the megakernel
+    # reproduces the direction bitwise in interpret mode.
     d = jnp.stack([
         e0 * rot[0, 0] + e1 * rot[1, 0] + e2 * rot[2, 0],
         e0 * rot[0, 1] + e1 * rot[1, 1] + e2 * rot[2, 1],

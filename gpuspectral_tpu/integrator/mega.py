@@ -1,30 +1,27 @@
-"""Persistent-wavefront Pallas megakernel: the whole path tracer in one kernel.
+"""Brute-force path-tracing megakernel for NVIDIA GPUs (Pallas, Triton route).
 
-This is the TPU-native equivalent of the reference's RT pipeline *as a single
-fused program*: raygen (camera rays + progressive seeding, raygen.rgen:29-41),
-the bounce loop with closest-hit shading (rayhit.rchit:666-797), NEE shadow
-rays, Russian roulette and sample regeneration all execute inside one
-`pallas_call`.  Nothing round-trips HBM between bounces — per-lane path state
-lives in registers/VMEM for the lifetime of a ray block.
+The whole path tracer runs in one kernel: raygen (camera rays + progressive
+seeding, raygen.rgen:29-41), the bounce loop with closest-hit shading
+(rayhit.rchit:666-797), NEE shadow rays, Russian roulette and sample
+regeneration.  Each program owns BLOCK rays, one per thread lane, and keeps
+their path state in registers for all cfg.spp samples; nothing goes back to
+device memory between bounces.  The XLA wavefront
+(`path_tracer.trace_wavefront`) instead writes that state to HBM between the
+many small fusions of every bounce.
 
-Why: the XLA wavefront (`path_tracer._bounce`) compiles to ~40 small fusions
-plus loop-carry copies per bounce (measured ~5.7 ms / 65536 lanes on v5e);
-the dominant cost is cross-lane `(R,3)->(R,)` reductions and inter-fusion HBM
-traffic, not intersection math.  Here every per-ray quantity is a separate
-`(8, LANES)` tile (structure-of-arrays), so all vector math is elementwise at
-full VPU width and the only memory traffic is the initial pixel-id load and
-the final radiance store.
+Scene tables (Woop transforms, per-triangle attributes, lights, camera,
+environment texels) are passed whole in global memory; they are at most
+MEGA_MAX_TRIS rows, so they stay in L1/L2.  The triangle loops read one
+triangle's Woop row with scalar loads shared by the block; hit attributes,
+light rows and environment texels are per-lane gathers.
 
-Scope: brute-force scenes whose triangle/light tables fit SMEM (a few hundred
-triangles — which includes the Cornell-box headline config), untextured,
-uniform light selection.  Larger scenes use the fused-BVH megakernel
-(integrator/mega_bvh.py) or the XLA wavefront; gradients run as a second
-persistent replay kernel (integrator/mega_grad.py) where eligible, else the
-differentiable XLA path.  Semantics are
-bit-compatible with `path_tracer.trace_wavefront`: identical counter-based RNG
-draws (ops/rng.py works unchanged inside Pallas — it is pure elementwise
-uint32 math), identical MIS/delta bookkeeping, clamps and epsilons; tests
-assert the two integrators agree.
+Scope: brute-force scenes up to MEGA_MAX_TRIS triangles, untextured, uniform
+light selection, no or small environment maps (`mega_eligible`).  Everything
+else runs on the XLA wavefront.  Semantics match
+`path_tracer.trace_wavefront`: identical counter-based RNG draws (ops/rng.py
+is pure elementwise uint32 math and runs unchanged in the kernel), identical
+MIS/delta bookkeeping, clamps and epsilons; tests assert the two integrators
+agree.
 """
 
 from __future__ import annotations
@@ -34,7 +31,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..bsdf.table import (
     BSDF_DIFFUSE,
@@ -54,20 +51,32 @@ from ..utils.config import RenderConfig
 M_PI = jnp.pi
 _BIG = 1e30
 
-SUB = 16  # sublanes per ray tile (2 f32 vregs per state plane)
-LANES = 128  # lane width
-BLOCK = SUB * LANES  # rays per grid step (one (8,128) tile per state var)
+# Rays per program and warps per program: one ray per thread, so the ~40
+# live state planes stay in registers.  Chosen by a sweep of 64/128/256 rays
+# x 2/4/8 warps on an H100 at the Cornell headline size (PERF.md): 64 x 2 and
+# 128 x 4 were within 3% of each other, and any layout with more threads
+# than rays ran 2-4x slower.
+BLOCK = 64
+NUM_WARPS = 2
 
-# The SMEM triangle-attribute table row layout (see _pack_tables)
-_NA = 31
-# Megakernel eligibility: tables must fit SMEM comfortably.  Must not exceed
+# Row strides of the flattened scene tables (see _pack_tables)
+_NW = 12  # Woop row: M rows x, y, z | b
+_NA = 31  # attribute row
+_NL = 12  # light row: 3 vertices | emission
+_NE = 5  # environment texel row: rgb | solid-angle pdf | cdf
+
+# Megakernel eligibility: tables must stay cache-resident.  Must not exceed
 # bvh/build.SLOT_DENSE_THRESHOLD: above it the SAH build scatters real
 # triangles across padded slots with -1 gaps, and this kernel's
-# fori(0, num_tris) loops would miss them (ADVICE r2).
+# fori(0, num_tris) loops would miss them.
 from ..bvh.build import SLOT_DENSE_THRESHOLD as _SLOT_DENSE
 
 MEGA_MAX_TRIS = 2048
 assert MEGA_MAX_TRIS <= _SLOT_DENSE, (MEGA_MAX_TRIS, _SLOT_DENSE)
+
+# Largest lat-long envmap the kernel shades itself (texels); bigger maps run
+# on the XLA wavefront.
+MEGA_ENV_MAX_TEXELS = 2048
 
 # RNG channel layout — MUST match path_tracer.CH_*
 _CH_BSDF_SELECT = 0
@@ -85,9 +94,9 @@ _CH_ENV_SELECT = 11
 
 
 # ---------------------------------------------------------------------------
-# SoA vector helpers: a vector is a plain (x, y, z) tuple of (SUB, LANES)
-# arrays.  Reductions over the component axis become 2-add chains, which is
-# the whole point — no cross-lane work anywhere.
+# SoA vector helpers: a vector is a plain (x, y, z) tuple of (BLOCK,)
+# arrays, one element per ray; reductions over the component axis are 2-add
+# chains inside each thread.
 # ---------------------------------------------------------------------------
 
 
@@ -181,7 +190,7 @@ def _to_world(t, b, n, v):
 # ---------------------------------------------------------------------------
 # SoA sampling / microfacet (ports of ops/sampling.py + vector parts of
 # ops/microfacet.py; scalar microfacet fns are reused from ops/ directly —
-# they are pure elementwise jnp and run unchanged inside Pallas).
+# they are pure elementwise jnp and run unchanged inside the kernel).
 # ---------------------------------------------------------------------------
 
 
@@ -557,17 +566,15 @@ def _sample_bsdf_soa(present, p, kind, wo, u_sel, u1, u2):
     wi = (z, z, z)
     f = (z, z, z)
     pdf = jnp.ones_like(z)
-    # delta accumulated as int32 0/1: Mosaic cannot re-narrow select chains
-    # over i1 vectors
-    delta = jnp.zeros_like(z, jnp.int32)
+    delta = jnp.zeros_like(z, jnp.bool_)
     for t in present:
         wi_t, f_t, pdf_t, d_t = _SAMPLERS[t](p, wo, u_sel, u1, u2)
         sel = kind == t
         wi = _where3(sel, wi_t, wi)
         f = _where3(sel, f_t, f)
         pdf = jnp.where(sel, pdf_t, pdf)
-        delta = jnp.where(sel & d_t, 1, delta)
-    return wi, f, pdf, delta != 0
+        delta = delta | (sel & d_t)
+    return wi, f, pdf, delta
 
 
 def _eval_bsdf_soa(present, p, kind, wo, wi):
@@ -576,103 +583,82 @@ def _eval_bsdf_soa(present, p, kind, wo, wi):
     z = jnp.zeros_like(wo[2])
     f = (z, z, z)
     pdf = jnp.ones_like(z)
-    delta = jnp.zeros_like(z, jnp.int32)
+    delta = jnp.zeros_like(z, jnp.bool_)
     for t in present:
         f_t, pdf_t, d_t = _EVALS[t](p, wo, wi)
         sel = kind == t
         f = _where3(sel, f_t, f)
         pdf = jnp.where(sel, pdf_t, pdf)
-        delta = jnp.where(sel & d_t, 1, delta)
-    return f, pdf, delta != 0
+        delta = delta | (sel & d_t)
+    return f, pdf, delta
+
 
 
 # ---------------------------------------------------------------------------
 # Table packing (device-side, jit-traceable)
 # ---------------------------------------------------------------------------
 
-# Largest lat-long envmap the fused kernels shade in-kernel (texels).  Every
-# env lookup is a one-hot contraction over the texel rows (~13 per bounce:
-# CDF sample + 2 bilinear evals + nearest pdf), so the compare cost scales
-# with the row count; 2048 rows (a 32x64 map) adds ~30 us per 1024-ray
-# bounce iteration.  Bigger maps fall back to the XLA wavefront.
-MEGA_ENV_MAX_TEXELS = 2048
-
 
 def _pack_env_table(scene: SceneData):
-    """(N8, 10) f32 texel table for the fused kernels' env closures.
-
-    cols: 0-2 radiance rgb, 3 solid-angle pdf, 4 cdf_hi_cmp, 5 cdf_lo_cmp,
-    6 cdf_hi_true, 7 cdf_lo_true, 8 texel x, 9 texel y.  The compare
-    columns make `(u > lo_cmp) & (u <= hi_cmp)` reproduce
-    `clip(searchsorted(cdf, u, 'left'), 0, n-1)` exactly (run-of-equal
-    cdf values select the first row, overflow selects the last); the true
-    columns carry the residual-rescale bounds of envmap.sample_envmap.
-    Pad rows can never be selected (hi_cmp = lo_cmp = -3)."""
+    """Flat (n * _NE,) f32 texel table: rows of rgb radiance, solid-angle
+    pdf and the flattened importance-sampling CDF (envmap.sample_envmap)."""
     h, w = scene.envmap.shape[:2]
     n = h * w
     f32 = jnp.float32
-    flat = scene.envmap.reshape(n, 3).astype(f32)
-    pdf = scene.envmap_pdf.reshape(n).astype(f32)
-    cdf = scene.envmap_cdf.reshape(n).astype(f32)
-    hi_cmp = jnp.concatenate([cdf[:-1], jnp.asarray([2.0], f32)])
-    lo_cmp = jnp.concatenate([jnp.asarray([-1.0], f32), cdf[:-1]])
-    lo_true = jnp.concatenate([jnp.asarray([0.0], f32), cdf[:-1]])
-    xs = (jnp.arange(n) % w).astype(f32)
-    ys = (jnp.arange(n) // w).astype(f32)
-    tab = jnp.concatenate(
-        [flat, pdf[:, None], hi_cmp[:, None], lo_cmp[:, None],
-         cdf[:, None], lo_true[:, None], xs[:, None], ys[:, None]], axis=1)
-    n8 = -(-n // 8) * 8
-    if n8 > n:
-        pad = jnp.zeros((n8 - n, 10), f32).at[:, 4:6].set(-3.0)
-        tab = jnp.concatenate([tab, pad], axis=0)
-    return tab
+    return jnp.concatenate([
+        scene.envmap.reshape(n, 3).astype(f32),
+        scene.envmap_pdf.reshape(n, 1).astype(f32),
+        scene.envmap_cdf.reshape(n, 1).astype(f32),
+    ], axis=1).reshape(-1)
 
 
 def make_env_tab_fns(env_ref, h: int, w: int):
-    """Kernel-side env-table closures over a VMEM (N8, 10) table ref.
+    """Kernel-side lookups into the _pack_env_table texel table, as per-lane
+    gathers.  Returns dict(sample, rgb, pdf, h, w) consumed by
+    make_bounce_body's image-env branches."""
+    n = h * w
 
-    All lookups are one-hot MXU contractions (exact: a one-hot matmul sums
-    exactly one bf16x3-split f32 term).  Returns dict(sample, rgb, pdf,
-    h, w) consumed by make_bounce_body's image-env branches."""
-    n8 = env_ref.shape[0]
-    riota = jax.lax.broadcasted_iota(jnp.int32, (n8, 1), 0)
-
-    def _per_group(u_or_idx, build_oh, cols, ncol):
-        outs = []
-        for g in range(u_or_idx.shape[0]):
-            oh = build_oh(u_or_idx[g:g + 1, :]).astype(jnp.float32)
-            outs.append(jax.lax.dot_general(
-                env_ref[:, cols:cols + ncol], oh,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32))
-        return jnp.stack(outs, axis=1)  # (ncol, S, 128)
-
-    hi_cmp = env_ref[:, 4:5]
-    lo_cmp = env_ref[:, 5:6]
+    def col(idx, c):
+        return env_ref[idx * _NE + c]
 
     def sample(u1):
-        """CDF inversion of the (S,128) uniforms: texel pdf / residual
-        bounds / coordinates (envmap.sample_envmap's idx/lo/hi/x/y)."""
-        v = _per_group(
-            u1, lambda ug: (ug > lo_cmp) & (ug <= hi_cmp), 3, 7)
-        return dict(pdf=v[0], hi=v[3], lo=v[4], x=v[5], y=v[6])
+        """CDF inversion of the uniforms u1: the texel index is
+        clip(searchsorted(cdf, u1, 'left'), 0, n - 1), found by a binary
+        search over the table's cdf column, exactly as
+        envmap.sample_envmap.  Returns the texel pdf, residual bounds and
+        coordinates."""
+        lo = jnp.zeros(u1.shape, jnp.int32)
+        hi = jnp.full(u1.shape, n, jnp.int32)
+        for _ in range(n.bit_length()):
+            active = lo < hi
+            mid = (lo + hi) >> 1
+            below = col(jnp.minimum(mid, n - 1), 4) < u1
+            lo = jnp.where(active & below, mid + 1, lo)
+            hi = jnp.where(active & (~below), mid, hi)
+        idx = jnp.minimum(lo, n - 1)
+        y = idx // w
+        x = idx - y * w
+        return dict(
+            pdf=col(idx, 3),
+            hi=col(idx, 4),
+            lo=jnp.where(idx > 0, col(jnp.maximum(idx - 1, 0), 4), 0.0),
+            x=x.astype(jnp.float32),
+            y=y.astype(jnp.float32),
+        )
 
     def rgb(idx):
-        """Radiance of per-lane flat texel indices (int32 planes)."""
-        v = _per_group(idx, lambda ig: riota == ig, 0, 3)
-        return v[0], v[1], v[2]
+        """Radiance of per-lane flat texel indices (int32)."""
+        return col(idx, 0), col(idx, 1), col(idx, 2)
 
     def pdf(idx):
-        v = _per_group(idx, lambda ig: riota == ig, 3, 1)
-        return v[0]
+        return col(idx, 3)
 
     return dict(sample=sample, rgb=rgb, pdf=pdf, h=h, w=w)
 
 
 def _pack_tables(scene: SceneData):
-    """Build the SMEM-resident scene tables.
+    """Flatten the scene tables the kernel reads (row-major, one row per
+    triangle / light).
 
     attr rows: 0-8 corner normals (n0 n1 n2), 9-11 emission, 12 twofaced,
     13 light idx, 14 bsdf kind, 15-26 bsdf params, 27-29 geometric normal,
@@ -698,22 +684,21 @@ def _pack_tables(scene: SceneData):
             area[:, None],
         ],
         axis=1,
-    ).T  # (31, T)
+    )  # (T, _NA)
     light = jnp.concatenate(
-        [scene.light_pos.reshape(-1, 9), scene.light_emission, scene.light_prob[:, None]],
-        axis=1,
-    ).T  # (13, L)
+        [scene.light_pos.reshape(-1, 9), scene.light_emission], axis=1)
     cam = scene.camera
-    r = cam.to_world[:3, :3].reshape(9)
-    o = cam.to_world[:3, 3]
-    # cols 13-15: constant-env radiance, 16-24: world->env rotation,
-    # 25: env texel solid-angle pdf (zeros when no envmap; only read by
-    # kernels compiled for constant-env scenes)
+    # 0-8 camera rotation, 9-11 origin, 12 fov, 13-15 constant-env
+    # radiance, 16-24 world->env rotation, 25 env texel solid-angle pdf
+    # (zeros when no envmap; only read by kernels compiled for
+    # constant-env scenes)
     camv = jnp.concatenate([
-        r, o, cam.fov[None], scene.envmap.reshape(-1)[0:3],
-        scene.envmap_rot.reshape(9), scene.envmap_pdf.reshape(-1)[0:1],
-    ]).reshape(1, 26)
-    return scene.tri_woop_t, attr, light, camv
+        cam.to_world[:3, :3].reshape(9), cam.to_world[:3, 3], cam.fov[None],
+        scene.envmap.reshape(-1)[0:3], scene.envmap_rot.reshape(9),
+        scene.envmap_pdf.reshape(-1)[0:1],
+    ])
+    return (scene.tri_woop.reshape(-1), attr.reshape(-1), light.reshape(-1),
+            camv)
 
 
 # ---------------------------------------------------------------------------
@@ -721,62 +706,12 @@ def _pack_tables(scene: SceneData):
 # ---------------------------------------------------------------------------
 
 
-def _u2i(bits):
-    """uint32 -> int32 bit reinterpretation (Mosaic-safe)."""
-    return jax.lax.bitcast_convert_type(bits, jnp.int32)
-
-
-def _u2f(bits):
-    """Exact f32 of a uint32 value, matching XLA's `astype(float32)` bit-for-
-    bit: split into 16-bit halves (each exact in f32), recombine with a single
-    rounding — Mosaic has no direct uint32->float32 cast."""
-    hi = _u2i(bits >> jnp.uint32(16)).astype(jnp.float32)
-    lo = _u2i(bits & jnp.uint32(0xFFFF)).astype(jnp.float32)
-    return hi * 65536.0 + lo
-
-
-def _uniform(seed, bounce, channel):
-    """ops/rng.py:uniform, with the Mosaic-safe u32->f32 conversion."""
-    return _u2f(rng.random_bits(seed, bounce, channel)) * jnp.float32(
-        1.0 / 4294967295.0
-    )
-
-
-def _fdivmod_exact(a, n: int):
-    """floor(a / n), a - floor(a/n)*n for f32 `a` holding an exact integer
-    < 2^24 and static n.  A rounded f32 division can put floor() off by one
-    near exact multiples; the remainder recomputation (exact: both operands
-    < 2^24) detects and corrects that."""
-    q = jnp.floor(a * (1.0 / n))
-    r = a - q * n
-    under = r < 0.0
-    over = r >= n
-    q = jnp.where(under, q - 1.0, jnp.where(over, q + 1.0, q))
-    r = jnp.where(under, r + n, jnp.where(over, r - n, r))
-    return q, r
-
-
-def _uniform_mod(bits, n: int):
-    """bits % n for static n, exact, using only ops Mosaic lowers everywhere.
-
-    Matches `bits % uint32(n)` bit-exactly: power-of-two n uses a mask;
-    otherwise Horner over 8-bit limbs keeps every f32 intermediate < 2^24
-    (exact) for any n < 2^16."""
-    if n & (n - 1) == 0:
-        return _u2i(bits & jnp.uint32(n - 1))
-    r = jnp.zeros(bits.shape, jnp.float32)
-    for shift in (24, 16, 8, 0):
-        byte = _u2i((bits >> jnp.uint32(shift)) & jnp.uint32(0xFF)).astype(jnp.float32)
-        _, r = _fdivmod_exact(r * 256.0 + byte, n)
-    return r.astype(jnp.int32)
-
-
 def _env_eval_tab(tab, rot, d, want_pdf: bool):
-    """Lat-long environment lookup on (S, LANES) direction planes: bilinear
+    """Lat-long environment lookup on per-lane direction planes: bilinear
     radiance (+ nearest-texel pdf when want_pdf) through the env-table
     closures of make_env_tab_fns.  Reproduces envmap.eval_envmap /
-    envmap_pdf op-for-op (the azimuth uses the shared arccos form,
-    envmap._dir_uv — atan2 does not lower in Mosaic)."""
+    envmap_pdf op-for-op, with the same polynomial arccos (envmap._dir_uv)
+    so texel decisions agree with the wavefront."""
     from .envmap import acos_fast
 
     h, w = tab["h"], tab["w"]
@@ -820,22 +755,17 @@ def _env_eval_tab(tab, rot, d, want_pdf: bool):
 
 
 def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
-                     pick_light, sel_pdf_of_hit, fresh, pix, spp,
-                     modulate=None, sync_regen: bool = False,
-                     grad_hook=None, env=None):
-    """The shared per-bounce shading + MIS/RR/regeneration state machine.
+                     pick_light, fresh, spp, env=None):
+    """The per-bounce shading + MIS/RR/regeneration state machine.
 
-    Both persistent kernels (this module's brute-force one and
-    integrator/mega_bvh.py's fused-BVH one) run this exact body; they differ
-    only in the injected closures:
+    The scene access is injected as closures:
 
       closest(o, d, alive) -> (t, hit, bu, bv, attrs)   attrs = _NA planes
       any_hit(o, d, t_min, t_max, active) -> occluded bool planes
-      pick_light(seed, bounce) -> (lv0, lv1, lv2, lemit, select_pdf)
-      sel_pdf_of_hit(attrs) -> light-selection pdf of the HIT emitter
-                               (uniform: 1/n_lights; power: baked attr row)
+      pick_light(seed, bounce) -> (lv0, lv1, lv2, lemit, select_pdf); the
+          selection is uniform, so select_pdf is also the selection pdf
+          of any emitter a BSDF ray hits
       fresh(sample) -> (o, d, seed)  per-pixel ray regeneration
-      modulate(p, attrs, bu, bv) -> p   albedo modulation hook (textures)
       env: environment emitter: dict(const=(er,eg,eb) scalars, rot=(9
            scalars, world->env), pdf=<texel solid-angle pdf scalar>,
            p_env=<static float>, has_area=<static bool>, and — for image
@@ -847,11 +777,12 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
 
     Semantics follow rayhit.rchit:666-797 + raygen.rgen:51-91 exactly, as
     path_tracer.trace_wavefront does (tests assert equivalence)."""
+    uniform = rng.uniform
 
     def body(st):
         bounce = st["depth"]
         seed = st["seed"]
-        alive = st["done"] == 0
+        alive = ~st["done"]
         o = (st["ox"], st["oy"], st["oz"])
         d = (st["dx"], st["dy"], st["dz"])
 
@@ -864,15 +795,13 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
         emission = (a[9], a[10], a[11])
         twofaced = a[12] > 0.5
         p = a[15:27]
-        if modulate is not None:
-            p = modulate(p, a, bu, bv)
         if len(present) == 1:  # kind row not gathered; constant
             kind = jnp.full(t.shape, present[0], jnp.int32)
         else:
-            kind = jnp.round(a[14]).astype(jnp.int32)
+            # kinds are small exact integers stored as f32
+            kind = a[14].astype(jnp.int32)
         gn = (a[27], a[28], a[29])
 
-        zf = jnp.zeros_like(t)
         zb = jnp.zeros_like(t, jnp.bool_)
 
         t_safe = jnp.where(hit, t, 1.0)
@@ -893,20 +822,18 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
         tg, bn, nn = _onb_create(sn)
         wo = _normalize(_to_local(tg, bn, nn, _neg(d)))
 
-        u_sel = _uniform(seed, bounce, _CH_BSDF_SELECT)
-        u1 = _uniform(seed, bounce, _CH_BSDF_U1)
-        u2 = _uniform(seed, bounce, _CH_BSDF_U2)
+        u_sel = uniform(seed, bounce, _CH_BSDF_SELECT)
+        u1 = uniform(seed, bounce, _CH_BSDF_U1)
+        u2 = uniform(seed, bounce, _CH_BSDF_U2)
         wi_local, f, pdf, delta = _sample_bsdf_soa(present, p, kind, wo, u_sel, u1, u2)
         now_ = jnp.abs(wi_local[2])
         wi_world = _to_world(tg, bn, nn, wi_local)
         transmission = kind == BSDF_SMOOTH_DIELECTRIC
 
         # --- light sampling ---
-        picked = pick_light(seed, bounce)
-        lv0, lv1, lv2, lemit, select_pdf = picked[:5]
-        lidx = picked[5] if len(picked) > 5 else None  # for grad_hook only
-        lu1 = _uniform(seed, bounce, _CH_LIGHT_U1)
-        lu2 = _uniform(seed, bounce, _CH_LIGHT_U2)
+        lv0, lv1, lv2, lemit, select_pdf = pick_light(seed, bounce)
+        lu1 = uniform(seed, bounce, _CH_LIGHT_U1)
+        lu2 = uniform(seed, bounce, _CH_LIGHT_U2)
         # ops/sampling.py:sample_triangle_light
         su = jnp.sqrt(jnp.maximum(lu1, 0.0))
         lbu = 1.0 - su
@@ -930,12 +857,12 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
         if env and cfg.nee:
             # env NEE strategy (path_tracer env mixture): constant (1x1)
             # emitters sample uniform-in-solid-angle; image maps invert the
-            # texel CDF via a one-hot contraction — both reproduce the
-            # ops/order of integrator/envmap.py:sample_envmap exactly
-            eu1 = _uniform(seed, bounce, _CH_ENV_U1)
-            eu2 = _uniform(seed, bounce, _CH_ENV_U2)
+            # texel CDF — both reproduce the ops/order of
+            # integrator/envmap.py:sample_envmap exactly
+            eu1 = uniform(seed, bounce, _CH_ENV_U1)
+            eu2 = uniform(seed, bounce, _CH_ENV_U2)
             if env["has_area"]:
-                env_pick = _uniform(seed, bounce, _CH_ENV_SELECT) < p_env
+                env_pick = uniform(seed, bounce, _CH_ENV_SELECT) < p_env
             else:
                 env_pick = jnp.ones_like(hit)
             if env_tab:
@@ -953,8 +880,8 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
                 jv = jnp.clip(eu1 / jnp.maximum(1.0, 1e-12), 0.0, 1.0)
                 phi = (2.0 * eu2 - 1.0) * M_PI
                 cos_t = 1.0 + jv * (-1.0 - 1.0)
-            # identities instead of arccos-then-sin/cos (arccos does not
-            # lower in Mosaic; envmap.sample_envmap uses the same forms)
+            # identities instead of arccos-then-sin/cos, as
+            # envmap.sample_envmap
             ct_ = jnp.clip(cos_t, -1.0, 1.0)
             st_ = jnp.sqrt(jnp.maximum(1.0 - ct_ * ct_, 0.0))
             ee = (st_ * jnp.sin(phi), ct_, -st_ * jnp.cos(phi))
@@ -1012,20 +939,20 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
 
         # emitter accumulation w/ MIS bookkeeping (rayhit.rchit:760-768)
         light_flag = jnp.where(_dot(gn, _neg(d)) > 0.0, 1.0, 0.0)
-        ce = st["count_emitted"] != 0
-        wd = st["was_delta"] != 0
+        ce = st["count_emitted"]
+        wd = st["was_delta"]
         se_r = emission[0] * light_flag * weight[0]
         se_g = emission[1] * light_flag * weight[1]
         se_b = emission[2] * light_flag * weight[2]
         if cfg.nee and cfg.mis_mode == "exact":
             area_hit = a[30]
             cos_hit = jnp.abs(_dot(gn, _neg(d)))
-            sel_hit = sel_pdf_of_hit(a)
+            sel_hit = select_pdf
             if env:
                 sel_hit = sel_hit * (1.0 - p_env)  # env/area mixture
             pdf_hit = t_safe * t_safe / jnp.maximum(cos_hit * area_hit, 1e-12) * sel_hit
             w_emit = jnp.where(
-                st["prev_nee"] != 0, _power_heuristic(st["prev_pdf"], pdf_hit), 1.0
+                st["prev_nee"], _power_heuristic(st["prev_pdf"], pdf_hit), 1.0
             )
             emit_w = jnp.where((~ce) & (~wd), w_emit, 1.0)
         elif cfg.nee:
@@ -1042,8 +969,8 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
             # environment radiance on miss, MIS-discounted against the env
             # NEE strategy (path_tracer env-miss block; miss.rmiss:15-18
             # stubs this in the reference).  Image maps evaluate bilinear
-            # radiance + nearest-texel pdf at the miss direction via
-            # one-hot contractions (envmap.eval_envmap/envmap_pdf ops).
+            # radiance + nearest-texel pdf at the miss direction
+            # (envmap.eval_envmap/envmap_pdf ops).
             if env_tab:
                 (er, eg, eb), m_pdf = _env_eval_tab(
                     env_tab, env["rot"], d, want_pdf=cfg.nee)
@@ -1053,7 +980,7 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
                 pdf_e = env["pdf"] * p_env if cfg.nee else None
             if cfg.nee:
                 w_env = jnp.where(
-                    (st["prev_nee_any"] != 0) & (~wd),
+                    st["prev_nee_any"] & (~wd),
                     _power_heuristic(st["prev_pdf"], pdf_e), 1.0)
                 scale_env = jnp.where(ce, 1.0, w_env)
             else:
@@ -1090,14 +1017,12 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
         st["wb"] = jnp.where(cont, new_w[2], weight[2])
         st["direct_weight"] = jnp.where(cont, new_direct_weight, st["direct_weight"])
         st["prev_pdf"] = jnp.where(cont, pdf, st["prev_pdf"])
-        b2i = lambda b: jnp.where(b, 1, 0)
-        st["prev_nee"] = jnp.where(cont, b2i(nee_done), st["prev_nee"])
+        st["prev_nee"] = jnp.where(cont, nee_done, st["prev_nee"])
         if env:
-            st["prev_nee_any"] = jnp.where(cont, b2i(nee_candidate),
-                                           st["prev_nee_any"])
-        st["was_delta"] = jnp.where(cont, b2i(delta), st["was_delta"])
-        st["count_emitted"] = jnp.where(cont, 0, st["count_emitted"])
-        st["done"] = b2i((st["done"] != 0) | miss | terminate)
+            st["prev_nee_any"] = jnp.where(cont, nee_candidate, st["prev_nee_any"])
+        st["was_delta"] = jnp.where(cont, delta, wd)
+        st["count_emitted"] = jnp.where(cont, False, ce)
+        st["done"] = st["done"] | miss | terminate
 
         keep = (e_r < cfg.firefly_clamp) & (e_g < cfg.firefly_clamp) & (e_b < cfg.firefly_clamp)
         acc = alive & keep
@@ -1105,39 +1030,23 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
         st["rad_g"] = st["rad_g"] + jnp.where(acc, e_g, 0.0)
         st["rad_b"] = st["rad_b"] + jnp.where(acc, e_b, 0.0)
 
-        if grad_hook is not None:
-            # path-replay backprop hook (integrator/mega_grad.py): sees this
-            # bounce's contribution pieces + pre-update throughput, updates
-            # its own grad-accumulator planes carried in `st`
-            st = grad_hook(st, dict(
-                a=a, weight=weight, hit=hit, alive=alive, acc=acc, cont=cont,
-                nee_done=nee_done, nee_s=nee_s, f_light=f_light,
-                lfront=lfront, lemit=lemit, lidx=lidx, emit_w=emit_w,
-                light_flag=light_flag, e=(e_r, e_g, e_b)))
-
         if_rr = bounce > jnp.uint32(cfg.rr_start_depth)
         q = jnp.clip(jnp.maximum(jnp.maximum(st["wr"], st["wg"]), st["wb"]),
                      cfg.rr_clamp_min, 1.0)
-        u_rr = _uniform(seed, bounce, _CH_RR)
+        u_rr = uniform(seed, bounce, _CH_RR)
         rr_kill = if_rr & (u_rr > q)
         rr_keep = if_rr & (~rr_kill)
         inv_q = 1.0 / q
         st["wr"] = jnp.where(rr_keep, st["wr"] * inv_q, st["wr"])
         st["wg"] = jnp.where(rr_keep, st["wg"] * inv_q, st["wg"])
         st["wb"] = jnp.where(rr_keep, st["wb"] * inv_q, st["wb"])
-        st["done"] = b2i((st["done"] != 0) | rr_kill)
+        st["done"] = st["done"] | rr_kill
 
         # depth advance + per-path cutoff + regeneration
         # (path_tracer.trace_wavefront body)
         depth = bounce + 1
-        done = (st["done"] != 0) | (depth >= jnp.uint32(cfg.max_depth + 1))
-        if sync_regen:
-            # block-synchronous sampling: every lane waits for the whole
-            # block, then all regenerate together — live lanes share a depth,
-            # keeping the traversal's bin union per-depth-tight
-            regen = jnp.all(done) & (st["sample"] + 1 < spp)
-        else:
-            regen = done & (st["sample"] + 1 < spp)
+        done = st["done"] | (depth >= jnp.uint32(cfg.max_depth + 1))
+        regen = done & (st["sample"] + 1 < spp)
         new_sample = jnp.where(regen, st["sample"] + 1, st["sample"])
         o_n, d_n, seed_n = fresh(new_sample)
         st["ox"] = jnp.where(regen, o_n[0], st["ox"])
@@ -1152,14 +1061,14 @@ def make_bounce_body(cfg: RenderConfig, present: tuple, *, closest, any_hit,
         st["wb"] = jnp.where(regen, 1.0, st["wb"])
         st["direct_weight"] = jnp.where(regen, 1.0, st["direct_weight"])
         st["prev_pdf"] = jnp.where(regen, 1.0, st["prev_pdf"])
-        st["prev_nee"] = jnp.where(regen, 0, st["prev_nee"])
+        st["prev_nee"] = st["prev_nee"] & (~regen)
         if env:
-            st["prev_nee_any"] = jnp.where(regen, 0, st["prev_nee_any"])
-        st["was_delta"] = jnp.where(regen, 0, st["was_delta"])
-        st["count_emitted"] = jnp.where(regen, 1, st["count_emitted"])
-        st["depth"] = jnp.where(regen, 0, depth)
+            st["prev_nee_any"] = st["prev_nee_any"] & (~regen)
+        st["was_delta"] = st["was_delta"] & (~regen)
+        st["count_emitted"] = st["count_emitted"] | regen
+        st["depth"] = jnp.where(regen, jnp.uint32(0), depth)
         st["sample"] = new_sample
-        st["done"] = b2i(done & (~regen))
+        st["done"] = done & (~regen)
         st["it"] = st["it"] + 1
         return st
 
@@ -1170,17 +1079,16 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_lights: int, present: tuple,
                  has_env: bool = False, has_area: bool = True,
                  env_hw=None):
     """Returns the kernel closure.  All shape/config values are static; the
-    progressive timestamp arrives as a traced SMEM scalar so successive
-    frames reuse one executable (raygen.rgen:37 semantics).  env_hw: (h, w)
-    of an image envmap — the kernel then takes an extra (N8, 10) VMEM
-    texel-table input (see _pack_env_table) and shades the environment
-    through one-hot contractions; None = constant-env / no-env path."""
+    progressive timestamp arrives as a traced scalar so successive frames
+    reuse one executable (raygen.rgen:37 semantics).  env_hw: (h, w) of an
+    image envmap — the kernel then takes an extra texel-table input (see
+    _pack_env_table); None = constant-env / no-env path."""
     width, height = cfg.width, cfg.height
     spp = cfg.spp
     max_iters = spp * (cfg.max_depth + 1)
-    # attr rows actually consumed by this (scene, config): the gather loop is
-    # O(n_tris x rows), so skipping rows the present BSDF set never reads is
-    # a direct win (e.g. diffuse-only Cornell reads 19 of 31 rows)
+    # attr rows actually consumed by this (scene, config): rows the present
+    # BSDF set never reads are not gathered (e.g. diffuse-only Cornell
+    # reads 19 of 31 rows)
     _params_used = {
         BSDF_DIFFUSE: 3, BSDF_SMOOTH_DIELECTRIC: 2, BSDF_SMOOTH_CONDUCTOR: 2,
         BSDF_SMOOTH_PLASTIC: 6, BSDF_ROUGH_CONDUCTOR: 10, BSDF_SMOOTH_FLOOR: 4,
@@ -1201,32 +1109,27 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_lights: int, present: tuple,
             env_ref, rad_r_ref, rad_g_ref, rad_b_ref, rays_ref = rest
         else:
             rad_r_ref, rad_g_ref, rad_b_ref, rays_ref = rest
-        t0 = ts_ref[0, 0]  # uint32 scalar (progressive frame base)
-        pix = jax.lax.bitcast_convert_type(pix_ref[:], jnp.uint32)
-        zf = jnp.zeros((SUB, LANES), jnp.float32)
-        zb = jnp.zeros((SUB, LANES), jnp.bool_)
-        # bool loop-carry state is held as int32 0/1 masks: Mosaic cannot
-        # re-truncate widened i1 vectors across while_loop iterations
-        zi = jnp.zeros((SUB, LANES), jnp.int32)
-        oi = jnp.ones((SUB, LANES), jnp.int32)
+        t0 = ts_ref[0]  # uint32 scalar (progressive frame base)
+        pix = pix_ref[...]  # uint32 pixel ids
+        zf = jnp.zeros(pix.shape, jnp.float32)
+        zb = jnp.zeros(pix.shape, jnp.bool_)
 
-        # camera constants (scalars from SMEM)
-        r00, r01, r02 = cam_ref[0, 0], cam_ref[0, 1], cam_ref[0, 2]
-        r10, r11, r12 = cam_ref[0, 3], cam_ref[0, 4], cam_ref[0, 5]
-        r20, r21, r22 = cam_ref[0, 6], cam_ref[0, 7], cam_ref[0, 8]
-        cox, coy, coz = cam_ref[0, 9], cam_ref[0, 10], cam_ref[0, 11]
-        fov = cam_ref[0, 12]
+        # camera constants (scalar loads)
+        r00, r01, r02 = cam_ref[0], cam_ref[1], cam_ref[2]
+        r10, r11, r12 = cam_ref[3], cam_ref[4], cam_ref[5]
+        r20, r21, r22 = cam_ref[6], cam_ref[7], cam_ref[8]
+        cox, coy, coz = cam_ref[9], cam_ref[10], cam_ref[11]
+        fov = cam_ref[12]
         zplane = (max(width, height) / 2.0) / jnp.tan(fov / 2.0)
 
-        def fresh(pixel, sample):
+        def fresh(sample):
             # scene/camera.py:generate_rays + per-sample seed (raygen.rgen:37)
-            seed = rng.pixel_seed(pixel, t0 + sample)
-            # pixel ids are < 2^24 (films up to 4096x4096), so the exact
-            # f32 divmod reproduces integer `% //` bit-for-bit
-            py, px = _fdivmod_exact(_u2f(pixel), width)
+            seed = rng.pixel_seed(pix, t0 + sample)
+            px = (pix % width).astype(jnp.float32)
+            py = (pix // width).astype(jnp.float32)
             if cfg.jitter:
-                px = px + _uniform(seed, jnp.uint32(0xFFFF), _CH_JITTER_X)
-                py = py + _uniform(seed, jnp.uint32(0xFFFF), _CH_JITTER_Y)
+                px = px + rng.uniform(seed, jnp.uint32(0xFFFF), _CH_JITTER_X)
+                py = py + rng.uniform(seed, jnp.uint32(0xFFFF), _CH_JITTER_Y)
             xx = px - width / 2.0
             yy = py - height / 2.0
             inv = jax.lax.rsqrt(xx * xx + yy * yy + zplane * zplane)
@@ -1237,19 +1140,19 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_lights: int, present: tuple,
             dwx = r00 * dcx + r01 * dcy + r02 * dcz
             dwy = r10 * dcx + r11 * dcy + r12 * dcz
             dwz = r20 * dcx + r21 * dcy + r22 * dcz
-            o = (jnp.zeros_like(dwx) + cox, jnp.zeros_like(dwy) + coy,
-                 jnp.zeros_like(dwz) + coz)
+            o = (zf + cox, zf + coy, zf + coz)
             return o, (dwx, dwy, dwz), seed
 
-        o0, d0, seed0 = fresh(pix, jnp.uint32(0))
+        o0, d0, seed0 = fresh(jnp.uint32(0))
 
         def _woop_test(ti, o, d, t_lo, t_hi):
-            """One Woop unit-triangle test (ops/woop.py semantics): returns
-            (t, u, v, hit) for triangle ti against all lanes."""
-            ax0, ax1, ax2 = woop_ref[0, ti], woop_ref[1, ti], woop_ref[2, ti]
-            ay0, ay1, ay2 = woop_ref[3, ti], woop_ref[4, ti], woop_ref[5, ti]
-            az0, az1, az2 = woop_ref[6, ti], woop_ref[7, ti], woop_ref[8, ti]
-            bx, by, bz = woop_ref[9, ti], woop_ref[10, ti], woop_ref[11, ti]
+            """One Woop unit-triangle test (ops/woop.py semantics) of
+            triangle ti against every lane: returns (t, u, v, hit)."""
+            base = ti * _NW
+            ax0, ax1, ax2 = woop_ref[base], woop_ref[base + 1], woop_ref[base + 2]
+            ay0, ay1, ay2 = woop_ref[base + 3], woop_ref[base + 4], woop_ref[base + 5]
+            az0, az1, az2 = woop_ref[base + 6], woop_ref[base + 7], woop_ref[base + 8]
+            bx, by, bz = woop_ref[base + 9], woop_ref[base + 10], woop_ref[base + 11]
             opz = o[0] * az0 + o[1] * az1 + o[2] * az2 + bz
             dpz = d[0] * az0 + d[1] * az1 + d[2] * az2
             live = jnp.abs(dpz) > 1e-12
@@ -1276,70 +1179,55 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_lights: int, present: tuple,
                     jnp.where(closer, v, best_v),
                 )
 
-            init = (jnp.full((SUB, LANES), _BIG, jnp.float32),
-                    jnp.full((SUB, LANES), -1, jnp.int32), zf, zf)
-            best_t, best_prim, bu, bv = jax.lax.fori_loop(0, n_tris, tri, init)
-            return best_t, best_prim, bu, bv
+            init = (zf + _BIG, jnp.full(pix.shape, -1, jnp.int32), zf, zf)
+            return jax.lax.fori_loop(0, n_tris, tri, init)
 
         def intersect_any(o, d, t_min, t_max, active):
             t_max = jnp.where(active, t_max, -1.0)
 
             def tri(ti, occ):
                 _t, _u, _v, hit = _woop_test(ti, o, d, t_min, t_max)
-                return jnp.where(hit, 1, occ)  # int32 carry: i1 loop carries trip Mosaic
+                return occ | hit
 
-            return jax.lax.fori_loop(0, n_tris, tri, zi) != 0
+            return jax.lax.fori_loop(0, n_tris, tri, zb)
 
         def gather_attrs(prim):
-            """Select-chain gather over the SMEM attr table: per-triangle
-            scalar broadcasts at full VPU width (the one-hot-matmul analogue
-            for scalar tables).  Rows outside `needed_rows` stay zero."""
-            def tri(ti, acc):
-                sel = prim == ti
-                return tuple(
-                    jnp.where(sel, attr_ref[c, ti], acc[c]) if c in needed_rows
-                    else acc[c]
-                    for c in range(_NA)
-                )
-
-            init = tuple(zf for _ in range(_NA))
-            return jax.lax.fori_loop(0, n_tris, tri, init)
-
-        def gather_light(lidx):
-            def li(ti, acc):
-                sel = lidx == ti
-                return tuple(
-                    jnp.where(sel, light_ref[c, ti], acc[c]) for c in range(12)
-                )
-
-            init = tuple(zf for _ in range(12))
-            return jax.lax.fori_loop(0, n_lights, li, init)
+            """Per-lane gather of the hit triangle's attribute row; misses
+            and rows outside `needed_rows` read zero."""
+            found = prim >= 0
+            base = jnp.maximum(prim, 0) * _NA
+            return tuple(
+                jnp.where(found, attr_ref[base + c], 0.0) if c in needed_rows
+                else zf
+                for c in range(_NA)
+            )
 
         state = dict(
             ox=o0[0], oy=o0[1], oz=o0[2],
             dx=d0[0], dy=d0[1], dz=d0[2],
-            wr=jnp.ones((SUB, LANES), jnp.float32),
-            wg=jnp.ones((SUB, LANES), jnp.float32),
-            wb=jnp.ones((SUB, LANES), jnp.float32),
-            direct_weight=jnp.ones((SUB, LANES), jnp.float32),
-            prev_pdf=jnp.ones((SUB, LANES), jnp.float32),
-            prev_nee=zi,
-            was_delta=zi,
-            count_emitted=oi,
-            done=zi,
+            wr=zf + 1.0, wg=zf + 1.0, wb=zf + 1.0,
+            direct_weight=zf + 1.0,
+            prev_pdf=zf + 1.0,
+            prev_nee=zb,
+            was_delta=zb,
+            count_emitted=~zb,
+            done=zb,
             rad_r=zf, rad_g=zf, rad_b=zf,
-            rays=jnp.zeros((SUB, LANES), jnp.int32),
+            rays=jnp.zeros(pix.shape, jnp.int32),
             seed=seed0,
-            depth=jnp.zeros((SUB, LANES), jnp.uint32),
-            sample=jnp.zeros((SUB, LANES), jnp.uint32),
+            depth=jnp.zeros(pix.shape, jnp.uint32),
+            sample=jnp.zeros(pix.shape, jnp.uint32),
             it=jnp.int32(0),
         )
         if has_env:
-            state["prev_nee_any"] = zi
+            state["prev_nee_any"] = zb
 
         def cond(st):
-            exhausted = (st["done"] != 0) & (st["sample"] + 1 >= spp)
-            return (st["it"] < max_iters) & (~jnp.all(exhausted))
+            exhausted = st["done"] & (st["sample"] + 1 >= spp)
+            # "not all lanes exhausted", as a min-reduction (Triton lowers
+            # no boolean any/all)
+            return (st["it"] < max_iters) & (
+                jnp.min(jnp.where(exhausted, 1, 0)) == 0)
 
         def closest(o, d, alive):
             t, prim, bu, bv = intersect_closest(o, d, alive)
@@ -1348,18 +1236,18 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_lights: int, present: tuple,
         def pick_light(seed, bounce):
             # uniform pick, as the reference (rayhit.rchit:720-729)
             lbits = rng.random_bits(seed, bounce, _CH_LIGHT_INDEX)
-            lidx = _uniform_mod(lbits, n_lights)
-            lr = gather_light(lidx)
+            base = (lbits % jnp.uint32(n_lights)).astype(jnp.int32) * _NL
+            lr = [light_ref[base + c] for c in range(_NL)]
             return ((lr[0], lr[1], lr[2]), (lr[3], lr[4], lr[5]),
                     (lr[6], lr[7], lr[8]), (lr[9], lr[10], lr[11]),
-                    1.0 / n_lights, lidx)
+                    1.0 / n_lights)
 
         env = None
         if has_env:
             env = dict(
-                const=(cam_ref[0, 13], cam_ref[0, 14], cam_ref[0, 15]),
-                rot=tuple(cam_ref[0, 16 + i] for i in range(9)),
-                pdf=cam_ref[0, 25],
+                const=(cam_ref[13], cam_ref[14], cam_ref[15]),
+                rot=tuple(cam_ref[16 + i] for i in range(9)),
+                pdf=cam_ref[25],
                 p_env=(0.5 if has_area else 1.0),
                 has_area=has_area,
             )
@@ -1370,16 +1258,15 @@ def _make_kernel(cfg: RenderConfig, n_tris: int, n_lights: int, present: tuple,
             closest=closest,
             any_hit=intersect_any,
             pick_light=pick_light,
-            sel_pdf_of_hit=lambda a: 1.0 / n_lights,
-            fresh=lambda sample: fresh(pix, sample),
-            pix=pix, spp=spp,
+            fresh=fresh,
+            spp=spp,
             env=env,
         )
         state = jax.lax.while_loop(cond, body, state)
-        rad_r_ref[:] = state["rad_r"]
-        rad_g_ref[:] = state["rad_g"]
-        rad_b_ref[:] = state["rad_b"]
-        rays_ref[:] = state["rays"]
+        rad_r_ref[...] = state["rad_r"]
+        rad_g_ref[...] = state["rad_g"]
+        rad_b_ref[...] = state["rad_b"]
+        rays_ref[...] = state["rays"]
 
     return kernel
 
@@ -1394,12 +1281,9 @@ def _env_image_hw(scene: SceneData):
 
 
 def _env_fused_ok(scene: SceneData) -> bool:
-    """Envmap coverage of the fused kernels: none, a CONSTANT emitter
-    (1x1 map — Mitsuba `constant`), or a lat-long map small enough for
-    in-kernel one-hot texel contractions (<= MEGA_ENV_MAX_TEXELS).
-    Bigger maps stay on the XLA wavefront (per-lane texel gathers have no
-    cheap VPU primitive; the contraction cost scales with the row
-    count)."""
+    """Envmap coverage of the kernel: none, a CONSTANT emitter (1x1 map —
+    Mitsuba `constant`), or a lat-long map of at most MEGA_ENV_MAX_TEXELS
+    texels.  Bigger maps stay on the XLA wavefront."""
     if not scene.has_envmap:
         return True
     h, w = scene.envmap.shape[:2]
@@ -1421,44 +1305,38 @@ def mega_eligible(scene: SceneData, cfg: RenderConfig) -> bool:
 
 def render_mega_rows(scene: SceneData, cfg: RenderConfig, pix,
                      timestamp0=0, interpret: bool = False):
-    """Run the brute-force megakernel over explicit pixel rows (possibly a
-    shard — parallel/dist.py shards the leading axis over the device mesh).
-    pix: (rows, LANES) int32 with rows a multiple of SUB.  Returns per-lane
-    radiance sums over cfg.spp + ray counts, each (rows, LANES)."""
-    woop_t, attr, light, camv = _pack_tables(scene)
-    rows = pix.shape[0]
-    assert rows % SUB == 0, rows
-    ts = jnp.asarray(timestamp0, jnp.uint32).reshape(1, 1)
+    """Run the megakernel over explicit pixel ids (possibly a shard —
+    parallel/dist.py shards them over the device mesh).  pix: (n,) uint32
+    with n a multiple of BLOCK.  Returns per-lane radiance sums over
+    cfg.spp + ray counts, each (n,)."""
+    woop, attr, light, camv = _pack_tables(scene)
+    n = pix.shape[0]
+    if n % BLOCK:
+        raise ValueError(f"pixel count {n} is not a multiple of {BLOCK}")
+    ts = jnp.asarray(timestamp0, jnp.uint32).reshape(1)
     env_hw = _env_image_hw(scene)
     kernel = _make_kernel(cfg, scene.num_tris, scene.num_lights,
                           scene.kinds_present,
                           has_env=scene.has_envmap,
                           has_area=scene.has_area_lights,
                           env_hw=env_hw)
-    blk = pl.BlockSpec((SUB, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    out_shape = jax.ShapeDtypeStruct((rows, LANES), jnp.float32)
-    extra_in, extra_specs = [], []
+    tables = [woop, attr, light, camv, ts]
     if env_hw:
-        etab = _pack_env_table(scene)
-        extra_in, extra_specs = [etab], [pl.BlockSpec(
-            etab.shape, lambda i: (0, 0), memory_space=pltpu.VMEM)]
-    params = {}
-    if env_hw:
-        # the image-env one-hot contraction transients ((N8, 128) per
-        # in-flight lookup) exceed the 16 MB scoped-vmem default
-        params = dict(compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=64 * 1024 * 1024))
+        tables.append(_pack_env_table(scene))
+    blk = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    whole = [pl.BlockSpec(x.shape, lambda i: (0,)) for x in tables]
+    f32 = jax.ShapeDtypeStruct((n,), jnp.float32)
     return pl.pallas_call(
         kernel,
-        grid=(rows // SUB,),
-        in_specs=[blk, smem, smem, smem, smem, smem] + extra_specs,
+        grid=(n // BLOCK,),
+        in_specs=[blk] + whole,
         out_specs=[blk, blk, blk, blk],
-        out_shape=[out_shape, out_shape, out_shape,
-                   jax.ShapeDtypeStruct((rows, LANES), jnp.int32)],
+        out_shape=[f32, f32, f32, jax.ShapeDtypeStruct((n,), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-        **params,
-    )(pix, woop_t, attr, light, camv, ts, *extra_in)
+        name="mega_path_trace",
+    )(pix.astype(jnp.uint32), *tables)
 
 
 @partial(jax.jit, static_argnames=("cfg", "interpret"))
@@ -1467,18 +1345,15 @@ def render_mega(scene: SceneData, cfg: RenderConfig, timestamp0=0,
     """Render (H, W, 3) radiance (mean over cfg.spp) + total rays traced.
 
     Equivalent to path_tracer.render_image_stats but executed as a single
-    persistent Pallas kernel."""
+    persistent kernel."""
     n_pixels = cfg.width * cfg.height
-    n_blocks = -(-n_pixels // BLOCK)
-    padded = n_blocks * BLOCK
-    pix = jnp.arange(padded, dtype=jnp.int32)
-    pix = jnp.where(pix < n_pixels, pix, 0).reshape(n_blocks * SUB, LANES)
+    padded = -(-n_pixels // BLOCK) * BLOCK
+    pix = jnp.arange(padded, dtype=jnp.uint32)
+    pix = jnp.where(pix < n_pixels, pix, 0)
     rad_r, rad_g, rad_b, rays = render_mega_rows(
         scene, cfg, pix, timestamp0, interpret=interpret)
 
-    rad = jnp.stack(
-        [rad_r.reshape(-1), rad_g.reshape(-1), rad_b.reshape(-1)], axis=-1
-    )[:n_pixels]
-    nrays = jnp.sum(rays.reshape(-1)[:n_pixels].astype(jnp.float32))
+    rad = jnp.stack([rad_r, rad_g, rad_b], axis=-1)[:n_pixels]
+    nrays = jnp.sum(rays[:n_pixels].astype(jnp.float32))
     img = (rad / cfg.spp).reshape(cfg.height, cfg.width, 3)
     return img, nrays

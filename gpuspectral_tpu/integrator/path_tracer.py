@@ -1,6 +1,6 @@
 """Wavefront path tracer.
 
-This module is the TPU equivalent of the reference's RT pipeline: the raygen
+This module re-expresses the reference's RT pipeline: the raygen
 bounce loop (raygen.rgen:29-108) and the closest-hit shading
 (rayhit.rchit:666-797) re-expressed as one vectorized bounce step iterated
 with `lax.scan` over a static depth bound.  Per-ray SIMT recursion becomes
@@ -66,22 +66,8 @@ CH_ENV_U2 = 10
 CH_ENV_SELECT = 11
 
 
-_ONEHOT_MAX = 8192  # above this, one-hot matmul gathers cost more than native
-
-
 def _take_rows(table, idx):
-    """Row gather; for small tables a one-hot MXU matmul (TPU gathers from
-    XLA are ~0.5 ms per (65536,) lookup — the matmul is ~20x cheaper and
-    keeps gradients flowing into the table)."""
-    t = table.shape[0]
-    if t <= _ONEHOT_MAX:
-        oh = (idx[:, None] == jnp.arange(t, dtype=idx.dtype)[None, :]).astype(table.dtype)
-        # HIGHEST precision: the MXU's default f32 matmul quantizes the table
-        # operand to bfloat16 — positions/normals/emission would lose ~16 bits
-        return jnp.dot(
-            oh, table, preferred_element_type=table.dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        )
+    """Row gather (gradients flow back into the table as a scatter-add)."""
     return table[idx]
 
 
@@ -149,59 +135,33 @@ def _texture_lookup(scene: SceneData, uv_c, tex_id, bu, bv):
     return jnp.where((tex_id >= 0)[:, None], texel, 1.0)
 
 
-def _resolve_intersector(cfg: RenderConfig) -> str:
-    if cfg.intersector != "auto":
-        return cfg.intersector
-    return "pallas" if jax.default_backend() == "tpu" else "woop"
-
-
-@jax.custom_vjp
-def _brute_vjp(origin, direction, t_max0, woop_t, woop_rows):
-    """Brute-force Pallas closest hit with exact (t, u, v) gradients w.r.t.
-    (origin, direction): forward is the fused kernel, backward re-evaluates
-    each ray's hit triangle's Woop test differentiably (bvh/dfs_sweep.py
-    closest_diff, same scheme).  Without this, reverse-mode AD cannot
-    linearize through pallas_call (no transpose rule) — TPU gradients would
-    only work on the slow XLA intersectors.  Tables ride as explicit args
-    (closures over tracers leak under the path-replay remat)."""
-    from ..ops.pallas_isect import closest_pallas
-    from ..ops.woop import _recover_uv
-
-    r = origin.shape[0]
-    t, prim = closest_pallas(origin, direction, woop_t,
-                             jnp.zeros((r,), jnp.float32), t_max0)
-    bu, bv = _recover_uv(origin, direction, woop_rows, prim,
-                         jnp.where(prim >= 0, t, 0.0))
-    bu = jnp.where(prim >= 0, bu, 0.0)
-    bv = jnp.where(prim >= 0, bv, 0.0)
-    return t, prim, bu, bv
-
-
-def _brute_vjp_fwd(origin, direction, t_max0, woop_t, woop_rows):
-    out = _brute_vjp(origin, direction, t_max0, woop_t, woop_rows)
-    return out, (origin, direction, out[1], woop_rows)
-
-
-def _brute_vjp_bwd(res, ct):
-    from ..bvh.dfs_sweep import _woop_eval_rows
-
-    o, d, prim, woop_rows = res
+def _rehit_grad(tri_pos, origin, direction, prim, t, u, v):
+    """(t, u, v) with the values given and the gradients of a
+    Moller-Trumbore re-test of each ray against its hit triangle `prim`
+    (zero for misses, prim < 0)."""
+    tri = tri_pos[jnp.maximum(prim, 0)]  # (R,3,3)
+    v0 = tri[:, 0]
+    e1 = tri[:, 1] - v0
+    e2 = tri[:, 2] - v0
+    h = jnp.cross(direction, e2)
+    a = jnp.sum(e1 * h, axis=-1)
+    f = 1.0 / jnp.where(jnp.abs(a) < 1e-12, 1.0, a)
+    s = origin - v0
+    q = jnp.cross(s, e1)
+    u_re = f * jnp.sum(s * h, axis=-1)
+    v_re = f * jnp.sum(direction * q, axis=-1)
+    t_re = f * jnp.sum(e2 * q, axis=-1)
     hit = prim >= 0
-    rows = woop_rows[jnp.maximum(prim, 0)]
-    _, vjp = jax.vjp(lambda oo, dd: _woop_eval_rows(rows, oo, dd), o, d)
-    zero = jnp.zeros_like(ct[0])
-    m = lambda c: jnp.where(hit, c, zero)
-    do, dd = vjp((m(ct[0]), m(ct[2]), m(ct[3])))
-    return do, dd, None, None, None
-
-
-_brute_vjp.defvjp(_brute_vjp_fwd, _brute_vjp_bwd)
-
-
-def _brute_closest_diff(scene: SceneData, origin, direction, t_max0):
     sg = jax.lax.stop_gradient
-    return _brute_vjp(origin, direction, t_max0, sg(scene.tri_woop_t),
-                      sg(scene.tri_woop))
+
+    def grad_of(x0, x):
+        return x0 + jnp.where(hit, x - sg(x), 0.0)
+
+    return grad_of(t, t_re), grad_of(u, u_re), grad_of(v, v_re)
+
+
+def _resolve_intersector(cfg: RenderConfig) -> str:
+    return "woop" if cfg.intersector == "auto" else cfg.intersector
 
 
 def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state):
@@ -210,59 +170,27 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state):
     seed = state["seed"]
     alive = ~state["done"]
     isector = _resolve_intersector(cfg)
-    if isector == "pallas" and cfg.use_bvh:
-        from ..bvh.binned import MAX_VMEM_SLOTS
 
-        if scene.tri_woop_t.shape[1] > MAX_VMEM_SLOTS:
-            # the Pallas BVH kernels keep the Woop table VMEM-resident;
-            # above this it cannot fit (living-room's 300k tris crashed the
-            # TPU worker outright) — fall back to the XLA BVH traversal,
-            # which streams from HBM at any scene size
-            isector = "woop"
-
-    attrs = None
+    sg = jax.lax.stop_gradient
     if cfg.use_bvh:
-        if isector == "pallas":
-            if cfg.bvh_kernel == "ftb":
-                # TPU default: front-to-back binned traversal (bvh/ftb.py)
-                from ..bvh.ftb import ftb_closest_diff
+        from ..bvh.traverse import intersect_closest_bvh
 
-                t, prim, bu, bv, attrs = ftb_closest_diff(
-                    scene, origin, direction, active=alive
-                )
-            elif cfg.bvh_kernel == "binned":
-                # per-ray-vote binned traversal (bvh/binned.py, round 2.5)
-                from ..bvh.binned import binned_closest_diff
-
-                t, prim, bu, bv, attrs = binned_closest_diff(
-                    scene, origin, direction, active=alive
-                )
-            else:
-                # block-voted gated sweeps (round-2 kernels)
-                from ..bvh.dfs_sweep import closest_diff
-
-                t, prim, bu, bv, attrs = closest_diff(
-                    scene, origin, direction, active=alive, kernel=cfg.bvh_kernel
-                )
-        else:
-            from ..bvh.traverse import intersect_closest_bvh
-
-            t, prim, bu, bv = intersect_closest_bvh(
-                origin,
-                direction,
-                scene.tri_pos,
-                scene.bvh_node_min,
-                scene.bvh_node_max,
-                scene.bvh_clusters,
-                scene.bvh_leaf_size,
-                scene.bvh_levels,
-                active=alive,
-                packet_size=cfg.packet_size,
-            )
-    elif isector == "pallas":
-        r = origin.shape[0]
-        t_max0 = jnp.where(alive, jnp.float32(1e30), jnp.float32(-1e30))
-        t, prim, bu, bv = _brute_closest_diff(scene, origin, direction, t_max0)
+        # the traversal's while_loop cannot be reverse-differentiated: it
+        # runs on constants, and the hit's (t, u, v) gradients come from a
+        # re-test of the hit triangle (_rehit_grad)
+        t, prim, bu, bv = intersect_closest_bvh(
+            sg(origin),
+            sg(direction),
+            sg(scene.tri_pos),
+            scene.bvh_node_min,
+            scene.bvh_node_max,
+            scene.bvh_clusters,
+            scene.bvh_leaf_size,
+            scene.bvh_levels,
+            active=alive,
+            packet_size=cfg.packet_size,
+        )
+        t, bu, bv = _rehit_grad(scene.tri_pos, origin, direction, prim, t, bu, bv)
     else:
         t, prim, bu, bv = isect.intersect_closest(
             origin,
@@ -275,41 +203,12 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state):
     hit = (prim >= 0) & alive
     miss = (~(prim >= 0)) & alive
 
-    if attrs is not None:
-        # fused in-kernel gather: geometry/topology rows from the traversal
-        # (bvh/dfs_sweep.py _attr_table); differentiable parameters still
-        # come from the small per-bsdf / per-light tables so gradients flow
-        from ..bvh.dfs_sweep import unpack_meta
-
-        r = attrs.shape[0]
-        nrm_c = attrs[:, 0:9].reshape(r, 3, 3)
-        gn_fused = attrs[:, 9:12]
-        area_fused = attrs[:, 12]
-        bsdf_idx, tri_lidx, twofaced = unpack_meta(attrs[:, 13])
-        bparams = _take_rows(scene.bsdf_params, bsdf_idx)
-        bkind = jnp.round(
-            _take_rows(scene.bsdf_kind[:, None].astype(jnp.float32), bsdf_idx)[:, 0]
-        ).astype(jnp.int32)
-        emission = jnp.where(
-            (tri_lidx >= 0)[:, None],
-            _take_rows(scene.light_emission, jnp.maximum(tri_lidx, 0)),
-            0.0,
-        )
-        pos_c = None
-        if scene.has_textures:
-            uv_c = attrs[:, 14:20].reshape(r, 3, 2)
-            tex_id = jnp.round(
-                _take_rows(scene.bsdf_tex[:, None].astype(jnp.float32), bsdf_idx)[:, 0]
-            ).astype(jnp.int32)
-            mod = _texture_lookup(scene, uv_c, tex_id, bu, bv)
-            bparams = bparams.at[:, 0:3].multiply(mod)
-    else:
-        pos_c, nrm_c, bparams, bkind, emission, twofaced, tri_lidx, _rows = _gather_tri(scene, prim)
-        if scene.has_textures:
-            # modulate the diffuse/reflectance color by the bound texture —
-            # unlike the reference, whose texture plumbing is stubbed
-            mod = _texture_modulation(scene, _rows, bu, bv)
-            bparams = bparams.at[:, 0:3].multiply(mod)
+    pos_c, nrm_c, bparams, bkind, emission, twofaced, tri_lidx, _rows = _gather_tri(scene, prim)
+    if scene.has_textures:
+        # modulate the diffuse/reflectance color by the bound texture —
+        # unlike the reference, whose texture plumbing is stubbed
+        mod = _texture_modulation(scene, _rows, bu, bv)
+        bparams = bparams.at[:, 0:3].multiply(mod)
 
     # hit position along the ray (rayhit.rchit:692).  Miss lanes carry
     # t = 1e30; clamp them to keep downstream math (and its *gradients*)
@@ -322,10 +221,7 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state):
     sn = m3.normalize(
         bw[..., None] * nrm_c[:, 0] + bu[..., None] * nrm_c[:, 1] + bv[..., None] * nrm_c[:, 2]
     )
-    if attrs is not None:
-        gn = gn_fused
-    else:
-        gn = m3.normalize(jnp.cross(pos_c[:, 1] - pos_c[:, 0], pos_c[:, 2] - pos_c[:, 0]))
+    gn = m3.normalize(jnp.cross(pos_c[:, 1] - pos_c[:, 0], pos_c[:, 2] - pos_c[:, 0]))
     # orient the interpolated shading normal into the geometric hemisphere:
     # negative-determinant object transforms flip inverse-transpose normals
     # relative to the transformed winding, which would strand wi sampling on
@@ -442,115 +338,22 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state):
     nee_candidate = cfg.nee & hit & (~delta) & (front_ok | transmission)
 
     if cfg.use_bvh:
-        if isector == "pallas" and cfg.bvh_kernel in ("binned", "ftb"):
-            # Visibility is a step function (zero gradient a.e.).  Votes are
-            # per-ray, but the block-level sweep still iterates the union of
-            # the block's candidate bins, so shadow-segment sorting pays off
-            # for these kernels too (cfg.shadow_sort).
-            if cfg.bvh_kernel == "ftb":
-                from ..bvh.ftb import ftb_any as _any_kernel
-            else:
-                from ..bvh.binned import binned_any as _any_kernel
+        from ..bvh.traverse import intersect_any_bvh
 
-            sg = jax.lax.stop_gradient
-            if cfg.shadow_sort:
-                endpoint = light_pos
-                if scene.has_envmap and cfg.nee:
-                    diag = m3.length(scene.bvh_node_max[0] - scene.bvh_node_min[0])
-                    endpoint = jnp.where(
-                        env_pick[..., None], position + ldir * diag, light_pos
-                    )
-                skey = _segment_sort_key(scene, position, endpoint, nee_candidate)
-                order = jnp.argsort(skey)
-                occ_s = _any_kernel(
-                    scene,
-                    sg(position)[order],
-                    sg(ldir)[order],
-                    t_min=cfg.shadow_epsilon,
-                    t_max=sg(ldist - cfg.shadow_epsilon)[order],
-                    active=nee_candidate[order],
-                )
-                shadowed = jnp.zeros_like(occ_s).at[order].set(occ_s)
-            else:
-                shadowed = _any_kernel(
-                    scene,
-                    sg(position),
-                    sg(ldir),
-                    t_min=cfg.shadow_epsilon,
-                    t_max=sg(ldist - cfg.shadow_epsilon),
-                    active=nee_candidate,
-                )
-        elif isector == "pallas":
-            from ..bvh.dfs_sweep import any_nodiff
-
-            if cfg.shadow_sort:
-                # Shadow rays from one lane block fan out to *different*
-                # sampled lights, so the path-state sort key (octant+origin)
-                # leaves their segments incoherent.  Sorting by segment
-                # ENDPOINT-major (the sampled light point) + origin packs
-                # rays into beams toward one light region: measured 1.8x
-                # fewer supernode votes per block on staircase2.
-                # Env-picked lanes aim at env_dir, not light_pos (ADVICE r2):
-                # use a far point along the actual shadow direction so their
-                # sort endpoint matches where the segment goes.
-                endpoint = light_pos
-                if scene.has_envmap and cfg.nee:
-                    diag = m3.length(scene.bvh_node_max[0] - scene.bvh_node_min[0])
-                    endpoint = jnp.where(
-                        env_pick[..., None], position + ldir * diag, light_pos
-                    )
-                skey = _segment_sort_key(scene, position, endpoint, nee_candidate)
-                order = jnp.argsort(skey)
-                occ_s = any_nodiff(
-                    scene,
-                    position[order],
-                    ldir[order],
-                    t_min=cfg.shadow_epsilon,
-                    t_max=(ldist - cfg.shadow_epsilon)[order],
-                    active=nee_candidate[order],
-                    kernel=cfg.bvh_kernel,
-                )
-                shadowed = jnp.zeros_like(occ_s).at[order].set(occ_s)
-            else:
-                shadowed = any_nodiff(
-                    scene,
-                    position,
-                    ldir,
-                    t_min=cfg.shadow_epsilon,
-                    t_max=ldist - cfg.shadow_epsilon,
-                    active=nee_candidate,
-                    kernel=cfg.bvh_kernel,
-                )
-        else:
-            from ..bvh.traverse import intersect_any_bvh
-
-            shadowed = intersect_any_bvh(
-                position,
-                ldir,
-                scene.tri_pos,
-                scene.bvh_node_min,
-                scene.bvh_node_max,
-                scene.bvh_clusters,
-                scene.bvh_leaf_size,
-                scene.bvh_levels,
-                t_min=cfg.shadow_epsilon,
-                t_max=ldist - cfg.shadow_epsilon,
-                active=nee_candidate,
-                packet_size=cfg.packet_size,
-            )
-    elif isector == "pallas":
-        from ..ops.pallas_isect import any_pallas
-
-        r = position.shape[0]
-        sh_tmax = jnp.where(nee_candidate, ldist - cfg.shadow_epsilon, -1.0)
-        # visibility is a step function (zero gradient a.e.); stop_gradient
-        # keeps reverse-mode AD from trying to linearize the pallas_call
-        shadowed = any_pallas(
-            jax.lax.stop_gradient(position),
-            jax.lax.stop_gradient(ldir),
-            jax.lax.stop_gradient(scene.tri_woop_t),
-            jnp.full((r,), cfg.shadow_epsilon, jnp.float32),
-            jax.lax.stop_gradient(sh_tmax),
+        # visibility is a step function (zero gradient a.e.)
+        shadowed = intersect_any_bvh(
+            sg(position),
+            sg(ldir),
+            sg(scene.tri_pos),
+            scene.bvh_node_min,
+            scene.bvh_node_max,
+            scene.bvh_clusters,
+            scene.bvh_leaf_size,
+            scene.bvh_levels,
+            t_min=cfg.shadow_epsilon,
+            t_max=sg(ldist - cfg.shadow_epsilon),
+            active=nee_candidate,
+            packet_size=cfg.packet_size,
         )
     else:
         shadowed = isect.intersect_any(
@@ -594,12 +397,9 @@ def _bounce(scene: SceneData, cfg: RenderConfig, bounce, state):
     if cfg.nee and cfg.mis_mode == "exact":
         # true MIS complement: light-sampling pdf of the point the BSDF ray
         # actually hit (solid-angle-converted area pdf x selection prob)
-        if attrs is not None:
-            area_hit = area_fused
-        else:
-            e1h = pos_c[:, 1] - pos_c[:, 0]
-            e2h = pos_c[:, 2] - pos_c[:, 0]
-            area_hit = 0.5 * m3.length(jnp.cross(e1h, e2h))
+        e1h = pos_c[:, 1] - pos_c[:, 0]
+        e2h = pos_c[:, 2] - pos_c[:, 0]
+        area_hit = 0.5 * m3.length(jnp.cross(e1h, e2h))
         cos_hit = jnp.abs(m3.dot(gn, -direction))
         if cfg.light_sampling == "power":
             sel_hit = _take_rows(
@@ -871,29 +671,6 @@ def trace_wavefront(scene: SceneData, cfg: RenderConfig, pixel_index, timestamp0
     return state["radiance"], state["rays_traced"], state["pixel"]
 
 
-def _segment_sort_key(scene: SceneData, origin, endpoint, candidate):
-    """Shadow-segment coherence key: 15-bit Morton of the ENDPOINT (major) +
-    15-bit Morton of the origin.  Non-candidates sort to the end."""
-    bb_min = scene.bvh_node_min[0]
-    bb_max = scene.bvh_node_max[0]
-    extent = jnp.maximum(bb_max - bb_min, 1e-6)
-
-    def m15(p):
-        q = jnp.clip((p - bb_min) / extent, 0.0, 1.0)
-        q = (q * 31.0).astype(jnp.uint32)  # 5 bits per axis
-
-        def ex(v):
-            v = (v | (v << 8)) & jnp.uint32(0x0300F00F)
-            v = (v | (v << 4)) & jnp.uint32(0x030C30C3)
-            v = (v | (v << 2)) & jnp.uint32(0x09249249)
-            return v
-
-        return (ex(q[:, 0]) << 2) | (ex(q[:, 1]) << 1) | ex(q[:, 2])
-
-    key = ((m15(endpoint) << 15) | m15(origin)).astype(jnp.int32)
-    return jnp.where(candidate, key, jnp.int32(2**30))
-
-
 def _ray_sort_key(scene: SceneData, origin, direction, done):
     """int32 coherence key: direction octant (3 bits) | origin Morton (27).
     Done lanes sort to the end."""
@@ -963,41 +740,6 @@ def render_image_stats(scene: SceneData, cfg: RenderConfig, timestamp0=0):
     radiance, nrays = jax.lax.map(render_batch, pixel_index)
     radiance = radiance.reshape(padded, 3)
     return radiance[:n_pixels].reshape(cfg.height, cfg.width, 3), jnp.sum(nrays)
-
-
-@partial(jax.jit, static_argnames=("cfg",))
-def _trace_batch_jit(scene: SceneData, cfg: RenderConfig, pix, timestamp0):
-    rad, rays, pixel = trace_wavefront(scene, cfg, pix, timestamp0)
-    if cfg.sort_rays:
-        local = (pixel - pix[0]).astype(jnp.int32)
-        rad = jnp.zeros_like(rad).at[local].set(rad)
-    return rad / cfg.spp, jnp.sum(rays.astype(jnp.float32))
-
-
-def render_image_stats_host(scene: SceneData, cfg: RenderConfig, timestamp0=0):
-    """render_image_stats with the batch loop on the HOST: one device
-    execution per ray batch instead of one `lax.map` over all batches.
-
-    Needed on large scenes: a single device execution covering the whole
-    image can run for minutes (coffee, 168k slot-mode triangles), and the
-    TPU runtime kills long executions ("worker crashed" — measured: the
-    same four 4096-ray batches that crash fused under lax.map each complete
-    in ~18 s as separate executions).  Numerically identical to
-    render_image_stats (same per-batch program, same seeds)."""
-    n_pixels = cfg.width * cfg.height
-    batch = min(cfg.ray_batch, n_pixels)
-    n_batches = -(-n_pixels // batch)
-    padded = n_batches * batch
-    timestamp0 = jnp.uint32(timestamp0)
-    rad_parts = []
-    nrays = 0.0
-    for b in range(n_batches):
-        pix = jnp.arange(b * batch, (b + 1) * batch, dtype=jnp.uint32)
-        rad, nr = _trace_batch_jit(scene, cfg, pix, timestamp0)
-        rad_parts.append(rad)
-        nrays = nrays + nr
-    radiance = jnp.concatenate(rad_parts, axis=0)[:n_pixels]
-    return radiance.reshape(cfg.height, cfg.width, 3), nrays
 
 
 @partial(jax.jit, static_argnames=("cfg",))

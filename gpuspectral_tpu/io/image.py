@@ -2,9 +2,9 @@
 
 The reference never writes images at all — its only output path is the
 swapchain blit (renderer/PathTracer.cpp:41-55); screenshots were captured
-externally (SURVEY.md §5.4).  A headless TPU renderer needs real files:
+externally (SURVEY.md §5.4).  A headless renderer needs real files:
 
-  * PNG  via PIL (tonemapped LDR),
+  * PNG  (tonemapped LDR, written with zlib + struct),
   * PFM  (the reference parses PFM for envmaps, engine/Loader.cpp:236-251),
   * EXR  minimal OpenEXR writer (float32/half, uncompressed or ZIP) so
     outputs can be compared against the Tungsten ground-truth EXRs.
@@ -32,14 +32,28 @@ def gamma_correct(x: np.ndarray, gamma: float = 2.2) -> np.ndarray:
     return np.clip(np.asarray(x, np.float32), 0.0, 1.0) ** (1.0 / gamma)
 
 
-def write_png(path: str, img: np.ndarray, tonemap: bool = False, gamma: float = 2.2) -> None:
-    """img: (H,W,3) float radiance. Applies ACES (optional) then gamma."""
-    from PIL import Image
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    body = tag + data
+    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
 
+
+def write_png(path: str, img: np.ndarray, tonemap: bool = False, gamma: float = 2.2) -> None:
+    """img: (H,W,3) float radiance. Applies ACES (optional) then gamma and
+    writes an 8-bit RGB PNG (zlib-compressed scanlines, filter type 0)."""
     x = np.asarray(img, np.float32)
     x = tonemap_aces(x) if tonemap else np.clip(x, 0.0, 1.0)
     x = gamma_correct(x, gamma)
-    Image.fromarray((x * 255.0 + 0.5).astype(np.uint8), "RGB").save(path)
+    rgb = (x * 255.0 + 0.5).astype(np.uint8)
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+    # IHDR: width, height, bit depth 8, colour type 2 (RGB), deflate,
+    # adaptive filtering, no interlace
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", ihdr))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def write_pfm(path: str, img: np.ndarray) -> None:

@@ -1,10 +1,9 @@
 """Ray-triangle intersection kernels (brute force baseline).
 
-This is the TPU replacement for what Vulkan gave the reference in hardware:
-`traceRayEXT` against a driver-built BVH (backend/vulkan/VulkanRays.cpp).
-The baseline here tests every ray against every triangle in dense blocks —
-branch-free VPU work with perfect memory coherence, which on TPU beats
-divergent tree walks up to surprisingly large scenes.  `bvh/` supplies the
+This replaces what Vulkan gave the reference in hardware: `traceRayEXT`
+against a driver-built BVH (backend/vulkan/VulkanRays.cpp).  The baseline
+here tests every ray against every triangle in dense blocks — branch-free
+elementwise work with perfect memory coherence.  `bvh/` supplies the
 hierarchical path for big scenes; both share this Moller-Trumbore core.
 
 Shapes: rays are SoA (origin (R,3), dir (R,3)); triangles (T,3,3).  The
@@ -69,9 +68,8 @@ def intersect_closest(
     are the barycentric weights of corners 1 and 2 (reference hitAttribute
     convention, rayhit.rchit:690).
 
-    With `woop` (precomputed (T,12) transforms, ops/woop.py) the test runs
-    as MXU matmuls — the fast path on TPU; otherwise Moller-Trumbore on the
-    VPU (the portable path).
+    With `woop` (precomputed (T,12) transforms, ops/woop.py) the test is
+    the Woop unit-triangle form; otherwise Moller-Trumbore.
     """
     r = origin.shape[0]
     big = jnp.float32(1e30)

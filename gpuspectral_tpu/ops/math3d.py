@@ -77,8 +77,8 @@ def onb_local_to_world(t, b, n, v):
 
 
 def _mat3_apply(m3x3, v):
-    # explicit products: TPU matmuls at default precision round f32 operands
-    # to bfloat16 — geometry cannot afford that
+    # explicit products: a GPU matmul at default precision may run f32
+    # operands in TF32 (10 mantissa bits) — geometry cannot afford that
     return jnp.stack(
         [
             m3x3[0, 0] * v[..., 0] + m3x3[0, 1] * v[..., 1] + m3x3[0, 2] * v[..., 2],

@@ -3,7 +3,7 @@
 The reference uses a *stateful* per-pixel PCG stream seeded with
 ``pcgHash(tea(pixelIndex, timestamp))`` and threads the mutable state through
 the bounce loop (reference: assets/shaders/pt_common.glsl:86-120,
-raygen.rgen:37).  A stateful stream is a poor fit for a TPU integrator — it
+raygen.rgen:37).  A stateful stream is a poor fit for a wavefront integrator — it
 serializes draws and makes backward replay depend on exact draw order.
 
 We keep the same hash family (PCG-RXS-M-XS output permutation, TEA seed mix)

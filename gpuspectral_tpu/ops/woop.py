@@ -1,19 +1,18 @@
-"""Woop-transform ray-triangle intersection on the MXU.
+"""Woop-transform ray-triangle intersection.
 
-The classic Moller-Trumbore formulation is pure VPU work with awkward
-(R, C, 3) intermediates.  Woop's unit-triangle transform moves the heavy
-lifting onto the MXU: per triangle precompute the affine map M that sends
-the triangle to the unit triangle (v0->origin, e1->x, e2->y, normal->z);
-then for a ray (o, d)
+The classic Moller-Trumbore formulation has awkward (R, C, 3)
+intermediates.  Woop's unit-triangle transform precomputes, per triangle,
+the affine map M that sends the triangle to the unit triangle (v0->origin,
+e1->x, e2->y, normal->z); then for a ray (o, d)
 
-    o' = M o + b,   d' = M d          <- six (R,3) x (3,C) matmuls
+    o' = M o + b,   d' = M d
     t  = -o'_z / d'_z
     u  = o'_x + t d'_x,  v = o'_y + t d'_y
     hit = u >= 0 & v >= 0 & u+v <= 1 & t in (t_min, t_max)
 
-The matmuls batch every ray against every triangle in a chunk at MXU rates;
-the epilogue is ~10 elementwise ops on well-shaped (R, C) tiles.  This is
-the TPU-native answer to what an RT core does in hardware for leaf tests.
+Every ray meets every triangle of a chunk as ~10 elementwise ops on (R, C)
+planes, which XLA fuses into one loop; the GPU megakernel
+(integrator/mega.py) runs the same test per triangle and lane.
 
 Precompute: `woop_transform(tri_pos)` -> (T, 12) rows [Ax, Ay, Az, b].
 Degenerate (padding) triangles get A = 0, b = 0 => d'_z = 0 => rejected.

@@ -1,19 +1,20 @@
 """Device-mesh distribution: tile x spp sharding with replicated scene.
 
 The reference is strictly single-GPU (SURVEY.md §2.3: one graphics queue,
-no NCCL/MPI anywhere).  The TPU-native distribution plan (BASELINE.json
-north star):
+no NCCL/MPI anywhere).  The distribution plan:
 
   * a 2-D mesh (tiles, spp): pixels sharded on one axis, samples-per-pixel
     on the other — both embarrassingly parallel, so the forward pass needs
     ZERO communication; collectives appear only at the end:
       - `psum` over the spp axis to average samples,
-      - gradients all-reduced with `psum` over both axes (ICI) in the
+      - gradients all-reduced with `psum` over both axes in the
         inverse-rendering step,
-  * scene + BVH replicated to every chip (they are small relative to HBM),
-  * multi-host: the same `shard_map` program under
-    `jax.distributed.initialize`; XLA routes ICI within a slice and DCN
-    across hosts.
+  * scene + BVH replicated to every device (they are small relative to
+    device memory),
+  * the cards of one host are joined all to all (NVLink), so the mesh
+    follows the algorithm and has no topology of its own,
+  * multi-process: the same `shard_map` program under
+    `jax.distributed.initialize` (parallel/launch.py).
 """
 
 from __future__ import annotations
@@ -104,34 +105,25 @@ def render_image_sharded(
 
 def render_image_sharded_fast(
     scene: SceneData, cfg: RenderConfig, mesh: Mesh, timestamp0: int = 0,
-    interpret: Optional[bool] = None,
+    interpret: bool = False,
 ):
-    """Distributed render through the FUSED Pallas kernels (VERDICT r3 #3:
-    the production path on a pod must run at megakernel speed, not
-    wavefront speed).  Pixel blocks are sharded over the 'tiles' axis;
-    samples over 'spp' (each spp-shard renders progressive frames
+    """Distributed render through the GPU megakernel (integrator/mega.py)
+    where `use_megakernel` picks it, else the XLA wavefront
+    (render_image_sharded).  Pixel blocks are sharded over the 'tiles'
+    axis; samples over 'spp' (each spp-shard renders progressive frames
     [t0 + i*local_spp, ...) whose union is exactly the unsharded sample
-    set, so the summed estimator matches the single-chip kernel).  Falls
-    back to the XLA wavefront where the fused kernels are ineligible.
+    set, so the summed estimator matches the single-device kernel).
+    `interpret=True` runs the kernel in the Pallas interpreter (tests).
 
     Returns (image (H, W, 3) replicated, rays_traced scalar)."""
-    from ..integrator.mega import (
-        LANES as M_LANES, SUB, mega_eligible, render_mega_rows)
-    from ..integrator.mega_bvh import (
-        BLOCK_R, LANES, ROWS, _pix_blocks, mega_bvh_eligible,
-        mega_bvh_stream, render_mega_bvh_blocks)
+    from ..integrator import use_megakernel
+    from ..integrator.mega import BLOCK, render_mega_rows
 
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    use_bvh_kernel = mega_bvh_eligible(scene, cfg)
-    use_brute_kernel = not use_bvh_kernel and mega_eligible(scene, cfg)
+    platform = "gpu" if interpret else mesh.devices.flat[0].platform
     spp_shards = mesh.shape["spp"]
-    if not (use_bvh_kernel or use_brute_kernel) or cfg.spp % spp_shards:
-        # ineligible scene OR spp not divisible by the spp mesh axis
-        # (ADVICE r4: degrade to the wavefront instead of asserting).
-        # The wavefront does not count rays; return 0.0 (a real float, so
-        # callers doing float(nrays) keep working) — callers that need
-        # honest ray counts use the fused path.
+    if not use_megakernel(scene, cfg, platform) or cfg.spp % spp_shards:
+        # the wavefront does not count rays; return 0.0 (a real float, so
+        # callers doing float(nrays) keep working)
         img = render_image_sharded(scene, cfg, mesh, timestamp0)
         return img, jnp.float32(0.0)
 
@@ -140,30 +132,16 @@ def render_image_sharded_fast(
     local_spp = cfg.spp // spp_shards
     cfg_local = cfg.replace(spp=local_spp)
 
-    if use_bvh_kernel:
-        pix_np, valid = _pix_blocks(cfg, mega_bvh_stream(scene))
-    else:
-        n_blocks = -(-n_pixels // (SUB * M_LANES))
-        padded = n_blocks * SUB * M_LANES
-        flat = np.arange(padded, dtype=np.int32)
-        valid = (flat < n_pixels).reshape(n_blocks, SUB, M_LANES)
-        pix_np = np.where(flat < n_pixels, flat, 0).reshape(
-            n_blocks, SUB, M_LANES)
-    # pad the block axis to a tiles multiple (pad blocks re-render block 0;
-    # masked out of the ray counter)
-    nb = pix_np.shape[0]
+    # pixel blocks of BLOCK lanes; the block axis is padded to a tiles
+    # multiple (pad lanes re-render pixel 0 and are masked out of the ray
+    # counter)
+    nb = -(-n_pixels // BLOCK)
     nb_pad = -(-nb // tiles) * tiles
-    if nb_pad > nb:
-        pix_np = np.concatenate(
-            [pix_np, np.broadcast_to(pix_np[:1], (nb_pad - nb,)
-                                     + pix_np.shape[1:])])
-        valid = np.concatenate(
-            [valid.reshape(nb, -1),
-             np.zeros((nb_pad - nb, valid.reshape(nb, -1).shape[1]), bool)])
-    valid = np.asarray(valid).reshape(nb_pad, -1)
+    flat = np.arange(nb_pad * BLOCK, dtype=np.uint32)
+    valid = flat < n_pixels
+    pix_np = np.where(valid, flat, 0).reshape(nb_pad, BLOCK)
 
-    scene_g, [pix] = _prep_inputs(
-        mesh, scene, [(pix_np, P("tiles", None, None))])
+    scene_g, [pix] = _prep_inputs(mesh, scene, [(pix_np, P("tiles", None))])
 
     @partial(
         jax.shard_map,
@@ -174,30 +152,16 @@ def render_image_sharded_fast(
     )
     def _render(pix_l, scene_rep):
         ts = jnp.uint32(timestamp0) + jax.lax.axis_index("spp") * local_spp
-        if use_bvh_kernel:
-            rr, rg, rb, rays = render_mega_bvh_blocks(
-                scene_rep, cfg_local, pix_l, ts, interpret=interpret)
-        else:
-            rows = pix_l.shape[0] * SUB
-            rr, rg, rb, rays = render_mega_rows(
-                scene_rep, cfg_local, pix_l.reshape(rows, M_LANES), ts,
-                interpret=interpret)
-            rr, rg, rb, rays = (x.reshape(pix_l.shape)
-                                for x in (rr, rg, rb, rays))
-        rad = jnp.stack([rr, rg, rb], axis=-1)
+        rr, rg, rb, rays = render_mega_rows(
+            scene_rep, cfg_local, pix_l.reshape(-1), ts, interpret=interpret)
+        rad = jnp.stack([rr, rg, rb], axis=-1).reshape(pix_l.shape + (3,))
         # sample sums add across spp shards (disjoint progressive frames)
         return (jax.lax.psum(rad, "spp"),
-                jax.lax.psum(rays, "spp"))
+                jax.lax.psum(rays.reshape(pix_l.shape), "spp"))
 
     rad_blocks, ray_blocks = _render(pix, scene_g)
-    pix_flat = jnp.asarray(pix_np.reshape(-1))
-    valid_flat = jnp.asarray(valid.reshape(-1))
-    scatter = lambda x: (  # noqa: E731
-        jnp.zeros((n_pixels,), x.dtype).at[pix_flat].set(x.reshape(-1)))
-    rad_blocks = rad_blocks.reshape(-1, 3)
-    rad = jnp.stack([scatter(rad_blocks[:, c]) for c in range(3)], axis=-1)
-    nrays = jnp.sum(jnp.where(valid_flat, ray_blocks.reshape(-1), 0)
-                    .astype(jnp.float32))
+    rad = rad_blocks.reshape(-1, 3)[:n_pixels]
+    nrays = jnp.sum(ray_blocks.reshape(-1)[:n_pixels].astype(jnp.float32))
     return (rad / cfg.spp).reshape(cfg.height, cfg.width, 3), nrays
 
 
@@ -212,10 +176,8 @@ def grad_step_sharded(
 
     Differentiates the MSE between the rendered image and `target` w.r.t.
     the BSDF parameter table, sharded like render_image_sharded.  The
-    gradient all-reduce (`psum` over both mesh axes) is the TPU equivalent
-    of the north star's 'all-reduce parameter gradients overlapped with
-    backward replay' — XLA overlaps the psum with the remat-ed backward
-    bounce loop automatically.
+    gradients all-reduce with one `psum` over both mesh axes, which XLA
+    can overlap with the remat-ed backward bounce loop.
 
     Returns (loss, grads) with grads matching scene.bsdf_params.
     """
@@ -280,135 +242,3 @@ def grad_step_sharded(
         return loss, grads
 
     return _step(pixel_index, target_flat, scene)
-
-
-def grad_step_sharded_fast(
-    scene: SceneData,
-    cfg: RenderConfig,
-    mesh: Mesh,
-    target,
-    timestamp0: int = 0,
-    interpret: Optional[bool] = None,
-    optimize_emission: bool = False,
-):
-    """Distributed gradient step through the FUSED replay kernels
-    (VERDICT r4 #3: the round-4 `grad_step_sharded` differentiates the XLA
-    wavefront — the 0.05-steps/s class — while the single-chip fused pair
-    does the same job ~40x faster; a pod must invert at fused speed).
-
-    Per shard: the fused forward renders this shard's pixel BLOCKS at its
-    local spp (disjoint progressive frames), the replay backward re-runs
-    the same blocks, and parameter gradients all-reduce with ONE psum over
-    (tiles, spp) — the north star's 'psum overlapped with backward replay'
-    (XLA schedules the psum against the remaining replay blocks).
-
-    The loss gradient avoids differentiating through a collective with the
-    same linear-surrogate identity as grad_step_sharded: with
-    img = (1/S) sum_shards x_i and residual r = 2 (img - t)/N held
-    constant, each shard differentiates sum(r * x_local / local_spp) / S
-    through its own samples only; the psum of those shard gradients is
-    exactly dL/dtheta.
-
-    Returns (loss, d_bsdf_params[, d_tri_emission, d_light_emission]);
-    the emission grads are appended when optimize_emission=True.  Falls
-    back to grad_step_sharded (wavefront autodiff) where the fused
-    backward's coverage doesn't apply.
-    """
-    from ..integrator.mega_bvh import (
-        ROWS, _pix_blocks, mega_bvh_stream)
-    from ..integrator.mega import LANES as M_LANES, SUB
-    from ..integrator.mega_grad import (
-        MAX_GRAD_LIGHTS, mega_bvh_grad_eligible, mega_bvh_grad_rows,
-        mega_grad_eligible, render_blocks_diff)
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    spp_shards = mesh.shape["spp"]
-    tiles = mesh.shape["tiles"]
-    use_brute = mega_grad_eligible(scene, cfg)
-    use_bvh = not use_brute and mega_bvh_grad_eligible(scene, cfg)
-    if (not (use_brute or use_bvh)) or cfg.spp % spp_shards:
-        loss, grads = grad_step_sharded(scene, cfg, mesh, target, timestamp0)
-        if optimize_emission:
-            return (loss, grads, jnp.zeros_like(scene.tri_emission),
-                    jnp.zeros_like(scene.light_emission))
-        return loss, grads
-
-    n_pixels = cfg.width * cfg.height
-    local_spp = cfg.spp // spp_shards
-    cfg_local = cfg.replace(spp=local_spp)
-    if use_bvh:
-        grad_rows = mega_bvh_grad_rows(scene)
-        n_gl = (scene.num_lights
-                if scene.num_lights <= MAX_GRAD_LIGHTS else 0)
-        pix_np, valid = _pix_blocks(cfg, mega_bvh_stream(scene))
-    else:
-        grad_rows, n_gl = (), scene.num_lights
-        n_blocks = -(-n_pixels // (SUB * M_LANES))
-        padded = n_blocks * SUB * M_LANES
-        flat = np.arange(padded, dtype=np.int32)
-        valid = (flat < n_pixels).reshape(n_blocks, SUB, M_LANES)
-        pix_np = np.where(flat < n_pixels, flat, 0).reshape(
-            n_blocks, SUB, M_LANES)
-    nb = pix_np.shape[0]
-    nb_pad = -(-nb // tiles) * tiles
-    if nb_pad > nb:
-        pix_np = np.concatenate(
-            [pix_np, np.broadcast_to(pix_np[:1], (nb_pad - nb,)
-                                     + pix_np.shape[1:])])
-        valid = np.concatenate(
-            [np.asarray(valid).reshape(nb, -1),
-             np.zeros((nb_pad - nb, valid.reshape(nb, -1).shape[1]), bool)])
-    valid_b = np.asarray(valid, np.float32).reshape(pix_np.shape)
-    tgt_b = np.asarray(target, np.float32).reshape(n_pixels, 3)[
-        pix_np.reshape(-1)].reshape(pix_np.shape + (3,))
-
-    scene_g, [pix, validf, tgt] = _prep_inputs(
-        mesh, scene, [(pix_np, P("tiles", None, None)),
-                      (valid_b, P("tiles", None, None)),
-                      (tgt_b, P("tiles", None, None, None))])
-
-    denom = n_pixels * 3
-
-    @partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P("tiles"), P("tiles"), P("tiles"),
-                  _replicated_specs(scene)),
-        out_specs=(P(), _replicated_specs(
-            (scene.bsdf_params, scene.tri_emission, scene.light_emission))),
-        check_vma=False,
-    )
-    def _step(pix_l, val_l, tgt_l, scene_rep):
-        ts = jnp.uint32(timestamp0) + jax.lax.axis_index("spp") * local_spp
-
-        def local_mean(bp, te, le):
-            x = render_blocks_diff(
-                scene_rep.replace(bsdf_params=bp, tri_emission=te,
-                                  light_emission=le),
-                cfg_local, pix_l, ts, bvh=use_bvh, grad_rows=grad_rows,
-                n_grad_lights=n_gl, interpret=interpret)
-            return x / cfg.spp  # this shard's contribution to the mean
-
-        sg = jax.lax.stop_gradient
-        x0 = local_mean(scene_rep.bsdf_params, scene_rep.tri_emission,
-                        scene_rep.light_emission)
-        img_l = jax.lax.psum(sg(x0), "spp")  # per-lane mean estimate
-        vm = val_l[..., None]
-        residual = sg(2.0 * (img_l - tgt_l) * vm / denom)
-
-        def surrogate(bp, te, le):
-            return jnp.sum(residual * local_mean(bp, te, le))
-
-        g_bp, g_te, g_le = jax.grad(surrogate, argnums=(0, 1, 2))(
-            scene_rep.bsdf_params, scene_rep.tri_emission,
-            scene_rep.light_emission)
-        loss = jax.lax.psum(
-            jnp.sum(vm * (img_l - tgt_l) ** 2), "tiles") / denom
-        grads = jax.lax.psum((g_bp, g_te, g_le), ("tiles", "spp"))
-        return loss, grads
-
-    loss, (d_bp, d_te, d_le) = _step(pix, validf, tgt, scene_g)
-    if optimize_emission:
-        return loss, d_bp, d_te, d_le
-    return loss, d_bp

@@ -5,13 +5,13 @@ throughout, e.g. VulkanDevice.cpp:30-31); ours so far was JAX fail-stop +
 exact checkpoints.  This module adds the missing supervision layer:
 
   * workers render PROGRESSIVE CHUNKS (one timestamp = one 1-spp frame per
-    chip group) and atomically checkpoint the running-mean accumulator +
+    device group) and atomically checkpoint the running-mean accumulator +
     frame counter after every chunk (io/checkpoint.py),
   * a single-process SUPERVISOR runs the worker gang, watches liveness
     (exit codes + heartbeat files), and on ANY worker failure kills the
     gang and relaunches it from the last checkpoint — JAX multi-host is
     gang-scheduled, so gang restart from an exact checkpoint is the
-    TPU-idiomatic recovery unit,
+    natural recovery unit,
   * restarts may SHRINK the gang (fewer hosts) when a host stays dead: the
     (tiles x spp) sharding is host-count agnostic and the accumulator is a
     plain running mean, so the resumed render is exact regardless of the

@@ -1,21 +1,24 @@
-"""Multi-host launch helpers (ICI/DCN distribution, SURVEY.md §5.8).
+"""Multi-process launch helpers (SURVEY.md §5.8).
 
-The reference has zero multi-device capability; the TPU build scales with
-the standard JAX multi-host recipe:
+The reference has zero multi-device capability; this build scales with the
+standard JAX multi-process recipe:
 
-  * every host runs the SAME program (this module's `initialize()` wires
-    `jax.distributed` from TPU pod metadata or explicit flags),
-  * the global (tiles x spp) mesh spans all chips; `shard_map` programs in
-    parallel/dist.py are host-count agnostic,
-  * scene/BVH load happens per host (replicated arrays), image tiles land
-    sharded; `gather_image` pulls the full frame to host 0 only at IO time,
-  * failure model: JAX multi-host fail-stop + the checkpoint/resume layer
+  * every process runs the SAME program; this module's `initialize()`
+    wires `jax.distributed` from explicit arguments — on GPU hosts nothing
+    supplies them, so the launcher passes the coordinator address
+    (`host:port`), the process count and this process's id,
+  * the global (tiles x spp) mesh spans all devices; `shard_map` programs in
+    parallel/dist.py are process-count agnostic,
+  * scene/BVH load happens per process (replicated arrays), image tiles land
+    sharded; `gather_image` pulls the full frame to process 0 only at IO
+    time,
+  * failure model: JAX multi-process fail-stop + the checkpoint/resume layer
     (io/checkpoint.py) — a crashed long render restarts exactly from the
     running mean (SURVEY.md §5.3-5.4).
 
 Local simulation: `GPUSPECTRAL_FAKE_HOSTS=N` (+ `GPUSPECTRAL_FAKE_HOST_ID`,
 `GPUSPECTRAL_COORDINATOR`) with the CPU backend runs N real OS processes
-through the same `jax.distributed` + gloo-collectives code paths as a pod —
+through the same `jax.distributed` + gloo-collectives code paths —
 exercised by tests/test_multihost.py (SURVEY.md §4 test strategy).
 """
 
@@ -34,8 +37,8 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed.  On TPU pods all arguments come from the
-    environment; elsewhere pass them explicitly, or simulate a pod on CPU
+    """Initialize jax.distributed.  Pass all three arguments explicitly
+    (GPU hosts supply none of them), or simulate several hosts on CPU
     with GPUSPECTRAL_FAKE_HOSTS=N / GPUSPECTRAL_FAKE_HOST_ID=i /
     GPUSPECTRAL_COORDINATOR=host:port (gloo collectives over localhost)."""
     fake = int(os.environ.get("GPUSPECTRAL_FAKE_HOSTS", "0"))
@@ -81,7 +84,7 @@ def global_sharded(mesh: Mesh, value: np.ndarray, spec: P):
 
 
 def pod_mesh(spp_shards: int = 1) -> Mesh:
-    """Global (tiles, spp) mesh over every chip in the slice/pod."""
+    """Global (tiles, spp) mesh over every device of every process."""
     devs = jax.devices()
     n = len(devs)
     assert n % spp_shards == 0, (n, spp_shards)

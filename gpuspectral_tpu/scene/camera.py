@@ -48,9 +48,9 @@ def generate_rays(cam: CameraData, width: int, height: int, pixel_index, jitter_
     d_cam = m3.normalize(
         jnp.stack([-xy_x, -xy_y, jnp.broadcast_to(z, xy_x.shape)], axis=-1)
     )
-    # Explicit component products, NOT a (R,3)@(3,3) matmul: on TPU the MXU's
-    # default f32 precision is bfloat16 passes, which quantizes ray directions
-    # to ~8 mantissa bits (a measured 1e-3 geometric error on primary hits).
+    # Explicit component products, NOT a (R,3)@(3,3) matmul: a GPU matmul at
+    # default f32 precision may run in TF32, which quantizes ray directions
+    # to 10 mantissa bits (a ~1e-3 geometric error on primary hits).
     r = cam.to_world[:3, :3]
     dx, dy, dz = d_cam[..., 0], d_cam[..., 1], d_cam[..., 2]
     d_world = jnp.stack(

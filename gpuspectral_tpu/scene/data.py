@@ -2,7 +2,7 @@
 
 The reference keeps per-object meshes + instance transforms and re-uploads
 instance/BSDF/light buffers every frame (renderer/PathTracer.cpp:58-93).  For
-a static TPU scene we bake everything once at build time:
+a static scene we bake everything once at build time:
 
   * all triangles pre-transformed to world space (positions by the object
     transform, shading normals by its inverse-transpose — the reference does
@@ -12,16 +12,15 @@ a static TPU scene we bake everything once at build time:
     (engine/Loader.cpp:316-330): every triangle of an emitting object becomes
     a light with world-space vertices.
 
-Arrays are padded to TPU-friendly multiples (lane width 128) with degenerate
-triangles; `num_tris` / `num_lights` stay static Python ints so shapes are
-jit-stable.
+Triangle arrays are padded to multiples of 128 with degenerate triangles;
+`num_tris` / `num_lights` stay static Python ints so shapes are jit-stable.
 
 Design decision — no instance level (vs renderer/Scene.h:17-21's
 RenderObject{transform, mesh, material} + per-frame TLAS rebuild,
 renderer/PathTracer.cpp:10-19): the reference keeps instances because
 Vulkan's TLAS gives per-instance transforms for free in hardware and its
 scenes could animate; in practice its loader bakes one static scene and the
-TLAS rebuild per frame is pure overhead.  On TPU an instance level would put
+TLAS rebuild per frame is pure overhead.  Here an instance level would put
 a per-hit 4x4 transform + a two-level traversal in the hot kernels and make
 shapes dynamic with instance count.  Baking to world-space triangle soup at
 load costs duplicated storage for shared meshes (none of the shipped scenes
@@ -70,7 +69,6 @@ class SceneData:
     tri_twofaced: jax.Array  # (T,) bool
     tri_light_idx: jax.Array  # (T,) int32 light row for emissive tris, else -1
     tri_woop: jax.Array  # (T,12) precomputed Woop transforms (ops/woop.py)
-    tri_woop_t: jax.Array  # (12,T) transposed copy (lane-aligned Pallas loads)
     # bsdf tables
     bsdf_kind: jax.Array  # (B,) int32
     bsdf_params: jax.Array  # (B,NUM_PARAMS) float32
@@ -95,16 +93,10 @@ class SceneData:
     # reference's uniform pick): prefix-sum CDF + per-light probability
     light_cdf: jax.Array  # (L,)
     light_prob: jax.Array  # (L,)
-    # LBVH over Morton-sorted triangles (bvh/build.py); triangle arrays above
-    # are stored in sorted order so BVH prim ids == array indices
+    # SAH BVH (bvh/build.py); triangle arrays above are stored in leaf order
+    # so BVH prim ids == array indices
     bvh_node_min: jax.Array  # (2C-1,3)
     bvh_node_max: jax.Array  # (2C-1,3)
-    # preorder DFS flattening with skip pointers (bvh/dfs_sweep.py)
-    bvh_dfs_bounds: jax.Array  # (6,N) f32: rows 0-2 lo, 3-5 hi
-    bvh_dfs_meta: jax.Array  # (2,N) i32: [skip idx, leaf tri offset | -1]
-    # binned-wavefront traversal tables (bvh/binned.py): bin AABBs, padded to
-    # a 32-bin word multiple with never-hit sentinels
-    bvh_bin_bounds: jax.Array  # (6, 32*ceil(bins/32)) f32
     camera: CameraData
     # static metadata
     num_tris: int = dataclasses.field(metadata=dict(static=True))
@@ -112,8 +104,6 @@ class SceneData:
     bvh_clusters: int = dataclasses.field(metadata=dict(static=True))
     bvh_leaf_size: int = dataclasses.field(metadata=dict(static=True))
     bvh_levels: int = dataclasses.field(metadata=dict(static=True))
-    bvh_bins: int = dataclasses.field(metadata=dict(static=True))
-    bvh_bin_slots: int = dataclasses.field(metadata=dict(static=True))
     # which BSDF kinds actually occur (static): the dispatch only computes
     # these branches — a scene-specialized integrator compile
     kinds_present: tuple = dataclasses.field(metadata=dict(static=True))
@@ -275,67 +265,9 @@ def build_scene(b: SceneBuilder) -> SceneData:
     # permutation is slot-based: every leaf owns exactly leaf_size slots and
     # unused slots (-1) become degenerate never-hit triangles, so leaf AABBs
     # stay as tight as the real SAH leaves (bvh/build.py).
-    from ..bvh.build import (
-        BIN_TARGET, BIN_TARGET_MID, BIN_TARGET_STREAM, build_bvh)
+    from ..bvh.build import build_bvh
 
-    # Bin size in three bands by fused-kernel table size (round-5 A/Bs,
-    # bvh/build.py constants):
-    #   fine 128-slot — small resident scenes: tight per-ray front-to-back
-    #     culling wins while the bin count (and so the per-round candidate
-    #     scan, which scales with the entry-matrix width c_pad) stays small;
-    #   mid 256-slot — large resident scenes (coffee/living-room class, up
-    #     to the ~100 MB VMEM residency budget measured by
-    #     tools/probe_vmem.py): 1-2k bins make wide pick scans real money,
-    #     and 256-slot bins balance scan width against culling granularity
-    #     (coffee: 3.82 Mrays/s vs 3.12 fat / ~2.6 fine);
-    #   fat 512-slot — HBM-streaming scenes beyond the residency budget:
-    #     fewer per-round DMA round-trips at ~128 KB per copy.
-    # Constants from the kernel module (lazy import: integrator.mega_bvh
-    # imports this module).
-    from ..integrator.mega_bvh import (
-        _NA, _NA_TEX, MEGA_BVH_RESIDENT_BYTES, MEGA_BVH_TABLE_BYTES,
-        table_bytes_for)
-
-    na = _NA_TEX if b.textures else _NA
-    n_lights_est = max(1, sum(x.shape[0] for x in b.light_pos))
-    raw_bytes = 4 * num_tris * (12 + na)
-
-    from ..bvh.binned import MAX_BINS, build_bins
-    from ..integrator.mega_bvh import (
-        MEGA_BVH_MID_MAX_BINS, MEGA_BVH_STREAM_MAX_BINS)
-
-    # named caps (not literals — ADVICE r3): fine/mid bound the bin count
-    # by their entry-matrix width budgets; fat by the streaming kernel's
-    # bin-table cap.  A band's padded table may overflow its byte budget
-    # (slot-fill slack the raw estimate can't see) — then drop a band and
-    # rebuild, so bin sizing always matches the render-time residency
-    # decision (ADVICE r4).
-    _BANDS = (
-        ("fine", BIN_TARGET, MAX_BINS, MEGA_BVH_TABLE_BYTES),
-        ("mid", BIN_TARGET_MID, MEGA_BVH_MID_MAX_BINS,
-         MEGA_BVH_RESIDENT_BYTES),
-        ("fat", BIN_TARGET_STREAM, MEGA_BVH_STREAM_MAX_BINS, None),
-    )
-
-    def _bvh_and_bins(band_i: int):
-        _, tgt, mx, _ = _BANDS[band_i]
-        tree = build_bvh(pos, num_tris, bin_target=tgt)
-        bounds, nb, ns = build_bins(
-            tree.node_min, tree.node_max, tree.n_clusters,
-            tree.n_clusters_real, tree.leaf_size, max_bins=mx,
-            slots_per_bin=tgt if num_tris > 0 else 0,
-        )
-        return tree, bounds, nb, ns
-
-    band_i = next(i for i, (_, _, _, cap) in enumerate(_BANDS)
-                  if cap is None or raw_bytes <= cap)
-    bvh, bin_bounds, n_bins, bin_slots = _bvh_and_bins(band_i)
-    while (_BANDS[band_i][3] is not None and num_tris > 0
-           and table_bytes_for(n_bins, bin_slots, na, n_lights_est)
-           > _BANDS[band_i][3]):
-        band_i += 1
-        bvh, bin_bounds, n_bins, bin_slots = _bvh_and_bins(band_i)
-
+    bvh = build_bvh(pos, num_tris)
     perm = bvh.perm
     slots = perm.shape[0]
     if slots % PAD_MULTIPLE:
@@ -355,13 +287,6 @@ def build_scene(b: SceneBuilder) -> SceneData:
 
     woop = woop_transform(pos)
     woop[empty] = 0.0  # degenerate: the unit-triangle test can never pass
-
-    from ..bvh.dfs_sweep import build_dfs_tables
-
-    dfs_bounds, dfs_meta = build_dfs_tables(
-        bvh.node_min, bvh.node_max, bvh.n_clusters, bvh.n_clusters_real,
-        bvh.leaf_size,
-    )
 
     if b.light_pos:
         lpos = np.concatenate(b.light_pos)
@@ -430,7 +355,6 @@ def build_scene(b: SceneBuilder) -> SceneData:
         tri_twofaced=jnp.asarray(twofaced),
         tri_light_idx=jnp.asarray(light_idx),
         tri_woop=jnp.asarray(woop),
-        tri_woop_t=jnp.asarray(woop.T.copy()),
         bsdf_kind=jnp.asarray(kinds),
         bsdf_params=jnp.asarray(params),
         textures=jnp.asarray(tex_atlas),
@@ -450,9 +374,6 @@ def build_scene(b: SceneBuilder) -> SceneData:
         light_prob=jnp.asarray(prob.astype(np.float32)),
         bvh_node_min=jnp.asarray(bvh.node_min),
         bvh_node_max=jnp.asarray(bvh.node_max),
-        bvh_dfs_bounds=jnp.asarray(dfs_bounds),
-        bvh_dfs_meta=jnp.asarray(dfs_meta),
-        bvh_bin_bounds=jnp.asarray(bin_bounds),
         camera=CameraData(
             to_world=jnp.asarray(b.cam_to_world, jnp.float32),
             fov=jnp.asarray(b.cam_fov, jnp.float32),
@@ -462,8 +383,6 @@ def build_scene(b: SceneBuilder) -> SceneData:
         bvh_clusters=bvh.n_clusters,
         bvh_leaf_size=bvh.leaf_size,
         bvh_levels=bvh.n_levels,
-        bvh_bins=n_bins,
-        bvh_bin_slots=bin_slots,
         kinds_present=tuple(sorted(set(int(k) for k in kinds))),
         has_textures=bool(b.textures),
         has_envmap=b.envmap_image is not None,

@@ -18,8 +18,14 @@ from .data import TEX_RES
 
 def load_bitmap(path: str, gamma: float = 2.2) -> np.ndarray:
     """-> (TEX_RES, TEX_RES, 3) float32 linear. LDR images are sRGB-decoded
-    (Mitsuba semantics).  Row 0 = v=1 (top), consistent with sample_nearest."""
-    from PIL import Image
+    (Mitsuba semantics).  Row 0 = v=1 (top), consistent with sample_nearest.
+    Needs Pillow, which only bitmap textures use."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"loading the bitmap texture {path} needs Pillow (PIL), which is "
+            "not installed") from e
 
     img = Image.open(path).convert("RGB").resize((TEX_RES, TEX_RES), Image.BILINEAR)
     arr = np.asarray(img, np.float32) / 255.0

@@ -29,15 +29,10 @@ class RenderConfig:
     tri_chunk: int = 512  # triangles per intersection block
     use_bvh: bool = False  # hierarchical traversal (bvh/) vs brute force
     packet_size: int = 1024  # rays per BVH traversal packet
-    # "auto": Pallas fused kernels on TPU, Woop-XLA elsewhere.
-    # "pallas" | "woop" | "mt" force a specific implementation.
+    # closest-hit/any-hit form of the XLA wavefront's brute-force test:
+    # "woop" (precomputed unit-triangle transforms, ops/woop.py) or "mt"
+    # (Moller-Trumbore); "auto" = "woop"
     intersector: str = "auto"
-    # BVH Pallas kernel: "ftb" (front-to-back per-(ray,bin) entry-distance
-    # traversal with per-lane t-culling, bvh/ftb.py — the round-3 default),
-    # "binned" (per-ray-vote grouped sweeps in index order, bvh/binned.py),
-    # "cluster" (dense static votes + gated linear sweep) or "dfs" (gated
-    # depth-first walk with dynamic occlusion culling)
-    bvh_kernel: str = "ftb"
     # reverse-mode remat granularity for differentiable renders:
     # "bounce" re-runs each bounce during backward (path replay, minimal
     # memory); "sample" stores per-bounce residuals within one sample and
@@ -49,16 +44,11 @@ class RenderConfig:
     # queue-compaction analogue, SURVEY.md §2.3); irrelevant to brute force
     sort_rays: bool = False
     sort_interval: int = 4  # bounce iterations between sorts
-    # sort NEE shadow rays by segment endpoint (sampled light point) + origin
-    # Morton key before the BVH any-hit kernel: shadow rays from one block
-    # fan out to different lights, so the path-state sort leaves them
-    # incoherent (measured 1.8x fewer supernode votes per block, staircase2)
-    shadow_sort: bool = True
     # share the NEE light PICK across aligned groups of this many lanes
     # (0 = per-lane, the reference's semantics).  Unbiased (each lane's pick
     # keeps its marginal distribution) but correlated across the block; turns
-    # a block's shadow rays into a coherent beam toward one light, collapsing
-    # BVH vote unions.  Enable for BVH-scale scenes.
+    # a block's shadow rays into a coherent beam toward one light, so a BVH
+    # packet visits fewer nodes.  Enable for BVH-scale scenes.
     light_block: int = 0
     # "uniform" matches the reference (rayhit.rchit:148: randPcg % numLights);
     # "power" importance-samples lights by emitted power (lower variance on
@@ -69,17 +59,6 @@ class RenderConfig:
     # approximation that overcounts emitter hits.  "exact" computes the true
     # light pdf of the actual BSDF-ray hit point, converging to ground truth.
     mis_mode: str = "reference"
-    # --- fused-BVH megakernel (integrator/mega_bvh.py) knobs ---
-    # block-synchronous sample regeneration: a block starts sample s+1 only
-    # once ALL its lanes finished sample s.  Trades lane occupancy for
-    # traversal coherence (every live lane sits at the same depth, so the
-    # block's front-to-back bin union stays per-depth-tight)
-    mega_sync_regen: bool = False
-    # debug: cap front-to-back traversal rounds per query (0 = exact).  A
-    # nonzero cap biases the image (misses hits in unswept bins) — perf
-    # probing only: the time-vs-cap curve separates per-round cost from
-    # effective round count
-    debug_rounds_cap: int = 0
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

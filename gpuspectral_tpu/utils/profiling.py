@@ -4,7 +4,7 @@ The reference instruments with Tracy: frame marks around Renderer::run and
 CPU/GPU zones named after framegraph passes (Renderer.cpp:94,115,
 FrameGraph.cpp:258, VulkanDriver.cpp:263).  Here the same roles map to:
 
-  * `jax.profiler.trace(log_dir)` captures a full XLA/TPU trace viewable in
+  * `jax.profiler.trace(log_dir)` captures a full XLA/GPU trace viewable in
     TensorBoard / Perfetto (device kernels replace Tracy GPU zones),
   * `jax.named_scope` annotations in the integrator/engine use the
     reference's pass names ("Frame"), so traces line up with Tracy captures,

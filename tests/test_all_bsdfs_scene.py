@@ -97,3 +97,23 @@ def test_zoo_nee_consistency(zoo_scene):
     m_off = off.reshape(4, 3, 4, 4, 3).mean((1, 3))
     err = np.abs(m_on - m_off).mean() / max(m_on.mean(), 1e-9)
     assert err < 0.35, err
+
+def test_zoo_megakernel_matches_wavefront(zoo_scene):
+    """All eight kinds in one scene: the kernel's per-lane kind dispatch
+    (select chains over every present kind) against the wavefront."""
+    from gpuspectral_tpu.integrator.mega import mega_eligible, render_mega
+    from gpuspectral_tpu.integrator.path_tracer import render_image_stats
+
+    cfg = RenderConfig(width=16, height=12, spp=2, max_depth=4, ray_batch=192)
+    assert mega_eligible(zoo_scene, cfg)
+    ref, rays_ref = render_image_stats(zoo_scene, cfg, jnp.uint32(0))
+    got, rays_got = render_mega(zoo_scene, cfg, 0, interpret=True)
+    ref, got = np.asarray(ref), np.asarray(got)
+    assert np.isfinite(got).all()
+    # a seam tie can flip a whole path (one emitter hit moves a 2-sample
+    # pixel by several units), so gate the share of such pixels and require
+    # the rest to agree to float rounding
+    off = np.abs(ref - got).max(-1) > 1e-3
+    assert off.mean() < 0.03, off.mean()
+    np.testing.assert_allclose(got[~off], ref[~off], atol=1e-5)
+    assert abs(float(rays_ref) - float(rays_got)) / float(rays_ref) < 0.02

@@ -242,83 +242,31 @@ def _env_box_builder(with_light: bool, envmap=None):
     return b.build()
 
 
-@pytest.mark.parametrize("with_light", [False, True])
-def test_constant_env_fused_matches_wavefront(with_light):
-    """Constant emitters run through the fused megakernels (VERDICT r4 #7):
-    env NEE mixture + MIS-discounted miss shading must match the XLA
-    wavefront bitwise in interpret mode (same RNG channels, same op
-    order)."""
-    from gpuspectral_tpu.integrator.mega import mega_eligible, render_mega
-    from gpuspectral_tpu.integrator.mega_bvh import (
-        mega_bvh_eligible, render_mega_bvh)
-
-    scene = _env_box_builder(with_light)
-    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
-                       ray_batch=256, jitter=False)
-    assert mega_eligible(scene, cfg)
-    img_w = np.asarray(render_image(scene, cfg))
-    img_m = np.asarray(render_mega(scene, cfg, 0, interpret=True)[0])
-    assert np.isfinite(img_m).all()
-    assert np.allclose(img_w, img_m, atol=2e-5), np.abs(img_w - img_m).max()
-
-    cfgb = cfg.replace(use_bvh=True, light_sampling="uniform")
-    assert mega_bvh_eligible(scene, cfgb)
-    img_wb = np.asarray(render_image(scene, cfgb))
-    img_b = np.asarray(render_mega_bvh(scene, cfgb, 0, interpret=True)[0])
-    assert np.allclose(img_wb, img_b, atol=2e-5), np.abs(img_wb - img_b).max()
-
-
-def test_constant_env_eligibility_gates():
-    """Constant-env scenes are fused-eligible but replay-grad-INeligible
-    (the hook's NEE attribution doesn't separate the env strategy)."""
-    from gpuspectral_tpu.integrator.mega import mega_eligible
-    from gpuspectral_tpu.integrator.mega_bvh import mega_bvh_eligible
-    from gpuspectral_tpu.integrator.mega_grad import (
-        mega_bvh_grad_eligible, mega_grad_eligible)
-
-    scene = _env_box_builder(with_light=True)
-    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
-                       ray_batch=256, jitter=False)
-    assert mega_eligible(scene, cfg)
-    assert not mega_grad_eligible(scene, cfg)
-    cfgb = cfg.replace(use_bvh=True)
-    assert mega_bvh_eligible(scene, cfgb)
-    assert not mega_bvh_grad_eligible(scene, cfgb)
-    # small lat-long maps are fused-eligible too (round 5: one-hot texel
-    # contractions), but replay-grad-INeligible like constant maps
-    b = _open_scene_builder()
-    b.set_envmap(np.broadcast_to(np.float32([1, 1, 1]), (4, 8, 3)).copy())
-    wide = b.build()
-    assert mega_eligible(wide, cfg)
-    assert mega_bvh_eligible(wide, cfgb)
-    assert not mega_grad_eligible(wide, cfg)
-    assert not mega_bvh_grad_eligible(wide, cfgb)
-
-
-@pytest.mark.parametrize("with_light", [False, True])
-def test_image_env_fused_matches_wavefront(with_light):
-    """IMAGE lat-long maps run through the fused megakernels (round 5):
-    CDF texel inversion, bilinear miss/NEE radiance and nearest-texel pdf
-    are one-hot contractions over the (N8, 10) env table — the op order
-    mirrors integrator/envmap.py exactly (the shared arccos azimuth,
-    envmap._dir_uv), so interpret mode matches the wavefront bitwise."""
-    from gpuspectral_tpu.integrator.mega import (
-        _env_image_hw, mega_eligible, render_mega)
-    from gpuspectral_tpu.integrator.mega_bvh import (
-        mega_bvh_eligible, render_mega_bvh)
-
-    # the open box of _env_box_builder, but under an IMAGE map: a sky
-    # gradient with a bright localized "sun" texel so CDF importance
-    # sampling is non-uniform
+def _sky_env():
+    """A sky gradient with a bright localized "sun" texel, so CDF
+    importance sampling is non-uniform."""
     h, w = 8, 16
     yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     env = np.stack([
         0.4 + 0.5 * yy / h, 0.3 + 0.2 * xx / w,
         np.full((h, w), 0.6)], axis=-1).astype(np.float32)
     env[2, 3] = (25.0, 20.0, 5.0)  # "sun"
-    scene = _env_box_builder(with_light, envmap=env)
-    assert _env_image_hw(scene) == (h, w)
+    return env
 
+
+@pytest.mark.parametrize("image_env", [False, True])
+@pytest.mark.parametrize("with_light", [False, True])
+def test_env_megakernel_matches_wavefront(with_light, image_env):
+    """Constant emitters and small lat-long maps run through the GPU
+    megakernel: the env NEE mixture, CDF texel inversion (binary search),
+    bilinear miss/NEE radiance and nearest-texel pdf mirror
+    integrator/envmap.py op for op, so interpret mode matches the
+    wavefront to float rounding (same RNG channels, same op order)."""
+    from gpuspectral_tpu.integrator.mega import (
+        _env_image_hw, mega_eligible, render_mega)
+
+    scene = _env_box_builder(with_light, envmap=_sky_env() if image_env else None)
+    assert _env_image_hw(scene) == ((8, 16) if image_env else None)
     cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
                        ray_batch=256, jitter=False)
     assert mega_eligible(scene, cfg)
@@ -327,16 +275,35 @@ def test_image_env_fused_matches_wavefront(with_light):
     assert np.isfinite(img_m).all()
     assert np.allclose(img_w, img_m, atol=2e-5), np.abs(img_w - img_m).max()
 
-    cfgb = cfg.replace(use_bvh=True, light_sampling="uniform")
-    assert mega_bvh_eligible(scene, cfgb)
-    img_wb = np.asarray(render_image(scene, cfgb))
-    img_b = np.asarray(render_mega_bvh(scene, cfgb, 0, interpret=True)[0])
-    assert np.allclose(img_wb, img_b, atol=2e-5), np.abs(img_wb - img_b).max()
+
+@pytest.mark.parametrize("image_env", [False, True])
+def test_env_bvh_matches_brute(image_env):
+    """The BVH wavefront under an environment emitter matches brute force
+    at the same seeds (traversal order can only flip exact t-ties)."""
+    scene = _env_box_builder(True, envmap=_sky_env() if image_env else None)
+    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
+                       ray_batch=256, jitter=False)
+    img_w = np.asarray(render_image(scene, cfg))
+    img_b = np.asarray(render_image(scene, cfg.replace(use_bvh=True)))
+    assert np.allclose(img_w, img_b, atol=2e-5), np.abs(img_w - img_b).max()
+
+
+def test_env_eligibility_gates():
+    """Constant and small lat-long maps are megakernel-eligible."""
+    from gpuspectral_tpu.integrator.mega import mega_eligible
+
+    scene = _env_box_builder(with_light=True)
+    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
+                       ray_batch=256, jitter=False)
+    assert mega_eligible(scene, cfg)
+    assert not mega_eligible(scene, cfg.replace(use_bvh=True))
+    b = _open_scene_builder()
+    b.set_envmap(np.broadcast_to(np.float32([1, 1, 1]), (4, 8, 3)).copy())
+    assert mega_eligible(b.build(), cfg)
 
 
 def test_big_image_env_stays_on_wavefront():
-    """Maps past MEGA_ENV_MAX_TEXELS are ineligible for the fused kernels
-    (the one-hot contraction cost scales with the texel-row count)."""
+    """Maps past MEGA_ENV_MAX_TEXELS are ineligible for the megakernel."""
     from gpuspectral_tpu.integrator.mega import (
         MEGA_ENV_MAX_TEXELS, mega_eligible)
 

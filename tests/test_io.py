@@ -20,6 +20,33 @@ def test_pfm_roundtrip(tmp_path):
     np.testing.assert_allclose(read_pfm(p), img)
 
 
+def test_png_roundtrip_stdlib(tmp_path):
+    """write_png needs only zlib + struct; decode its chunks the same way
+    and compare every pixel with the expected 8-bit values."""
+    import struct
+    import zlib
+
+    img = np.random.default_rng(1).uniform(0, 1.5, (9, 13, 3)).astype(np.float32)
+    p = tmp_path / "x.png"
+    write_png(str(p), img)
+    data = p.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 4:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(body), tag
+        chunks[tag] = chunks.get(tag, b"") + body[4:]
+        pos += 12 + n
+    assert struct.unpack(">IIBBBBB", chunks[b"IHDR"]) == (13, 9, 8, 2, 0, 0, 0)
+    assert chunks[b"IEND"] == b""
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(9, 1 + 13 * 3)
+    assert (rows[:, 0] == 0).all()  # filter type 0 on every scanline
+    expected = (gamma_correct(np.clip(img, 0.0, 1.0)) * 255.0 + 0.5).astype(np.uint8)
+    np.testing.assert_array_equal(rows[:, 1:].reshape(9, 13, 3), expected)
+
+
 def test_png_writes(tmp_path):
     from PIL import Image
 

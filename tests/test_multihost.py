@@ -67,41 +67,29 @@ def test_two_process_sharded_render_matches_single(tmp_path):
     np.testing.assert_allclose(res["grads"], np.asarray(grads1), rtol=1e-4, atol=1e-8)
 
 
-def test_sharded_fast_matches_unsharded_mega_bvh():
-    """render_image_sharded_fast routes through the fused-BVH megakernel
-    per shard (VERDICT r3 #3); on the virtual 8-device mesh its image must
-    match the unsharded kernel (same sample set: spp shards render
-    disjoint progressive-frame ranges whose union is the full spp)."""
-    import jax
-    import numpy as np
-
-    from gpuspectral_tpu.integrator.mega_bvh import (
-        mega_bvh_eligible, render_mega_bvh)
+def test_sharded_fast_bvh_config_uses_wavefront():
+    """Configs the megakernel does not cover (here BVH traversal) shard
+    through the XLA wavefront, identically to render_image_sharded."""
     from gpuspectral_tpu.parallel.dist import (
-        make_mesh, render_image_sharded_fast)
+        make_mesh, render_image_sharded, render_image_sharded_fast)
     from gpuspectral_tpu.scene import load_mitsuba_scene
     from gpuspectral_tpu.utils import RenderConfig
 
     scene, _ = load_mitsuba_scene("scenes/cornell/scene.xml")
-    cfg = RenderConfig(width=32, height=32, spp=4, max_depth=3,
-                       ray_batch=1024, use_bvh=True, jitter=False,
+    cfg = RenderConfig(width=16, height=16, spp=4, max_depth=3,
+                       ray_batch=256, use_bvh=True, jitter=False,
                        light_sampling="power", mis_mode="exact")
-    assert mega_bvh_eligible(scene, cfg)
     mesh = make_mesh(8, spp_shards=2)
-    img_s, nrays_s = render_image_sharded_fast(
-        scene, cfg, mesh, timestamp0=0, interpret=True)
-    img_u, nrays_u = render_mega_bvh(scene, cfg, 0, interpret=True)
-    img_s, img_u = np.asarray(img_s), np.asarray(img_u)
-    assert np.isfinite(img_s).all()
-    # identical sample set; only the accumulation order differs
-    assert np.allclose(img_s, img_u, atol=1e-5), np.abs(img_s - img_u).max()
-    assert float(nrays_s) == float(nrays_u)
+    img_f, nrays = render_image_sharded_fast(scene, cfg, mesh, interpret=True)
+    img_s = render_image_sharded(scene, cfg, mesh)
+    np.testing.assert_array_equal(np.asarray(img_f), np.asarray(img_s))
+    assert float(nrays) == 0.0
 
 
-def test_sharded_fast_brute_path():
-    """Non-BVH configs route through the brute megakernel per shard."""
-    import numpy as np
-
+@pytest.mark.parametrize("spp_shards,size", [(2, (32, 32)), (1, (20, 9))])
+def test_sharded_fast_brute_path(spp_shards, size):
+    """Brute-force configs route through the megakernel per shard; the
+    image and ray count match the unsharded kernel (same sample set)."""
     from gpuspectral_tpu.integrator.mega import mega_eligible, render_mega
     from gpuspectral_tpu.parallel.dist import (
         make_mesh, render_image_sharded_fast)
@@ -109,84 +97,48 @@ def test_sharded_fast_brute_path():
     from gpuspectral_tpu.utils import RenderConfig
 
     scene, _ = load_mitsuba_scene("scenes/cornell/scene.xml")
-    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=3,
+    w, h = size
+    cfg = RenderConfig(width=w, height=h, spp=2, max_depth=3,
                        ray_batch=1024, use_bvh=False, jitter=False)
     assert mega_eligible(scene, cfg)
-    mesh = make_mesh(8, spp_shards=2)
+    mesh = make_mesh(8, spp_shards=spp_shards)
     img_s, nrays_s = render_image_sharded_fast(
         scene, cfg, mesh, timestamp0=0, interpret=True)
     img_u, nrays_u = render_mega(scene, cfg, 0, interpret=True)
     img_s, img_u = np.asarray(img_s), np.asarray(img_u)
+    assert img_s.shape == (h, w, 3)
     assert np.allclose(img_s, img_u, atol=1e-5), np.abs(img_s - img_u).max()
     assert float(nrays_s) == float(nrays_u)
 
 
-def test_grad_sharded_fast_matches_fused_single():
-    """grad_step_sharded_fast (VERDICT r4 #3) runs the fused replay
-    backward per shard; on the virtual mesh its loss/grads must match the
-    single-device fused custom_vjp gradient of the same MSE."""
+@pytest.mark.parametrize("use_bvh", [False, True])
+def test_grad_sharded_matches_single_device(use_bvh):
+    """grad_step_sharded's loss and gradients equal a single-device
+    value_and_grad of the same MSE over the same sample set."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
 
-    from gpuspectral_tpu.integrator.mega_grad import (
-        mega_bvh_grad_eligible, render_mega_bvh_diff)
-    from gpuspectral_tpu.parallel.dist import make_mesh, grad_step_sharded_fast
+    from gpuspectral_tpu.integrator.path_tracer import render_sample
+    from gpuspectral_tpu.parallel.dist import grad_step_sharded, make_mesh
     from gpuspectral_tpu.scene import load_mitsuba_scene
     from gpuspectral_tpu.utils import RenderConfig
 
     scene, _ = load_mitsuba_scene("scenes/cornell/scene.xml")
-    cfg = RenderConfig(width=32, height=32, spp=4, max_depth=3,
-                       ray_batch=1024, use_bvh=True, jitter=False,
-                       light_sampling="power", mis_mode="exact")
-    assert mega_bvh_grad_eligible(scene, cfg)
-    rng = np.random.default_rng(7)
-    target = rng.uniform(0.0, 1.0, (32, 32, 3)).astype(np.float32)
-
+    cfg = RenderConfig(width=16, height=16, spp=4, max_depth=3,
+                       ray_batch=256, use_bvh=use_bvh, jitter=False)
+    target = np.random.default_rng(8).uniform(0.0, 1.0, (16, 16, 3)).astype(np.float32)
     mesh = make_mesh(8, spp_shards=2)
-    loss_s, g_s = grad_step_sharded_fast(
-        scene, cfg, mesh, target, timestamp0=0, interpret=True)
+    loss_s, g_s = grad_step_sharded(scene, cfg, mesh, target, timestamp0=5)
+
+    pix = jnp.arange(16 * 16, dtype=jnp.uint32)
 
     def loss_fn(bp):
-        img = render_mega_bvh_diff(
-            scene.replace(bsdf_params=bp), cfg, 0, interpret=True)
+        sc = scene.replace(bsdf_params=bp)
+        acc = sum(render_sample(sc, cfg, pix, jnp.uint32(5 + s), differentiable=True)[0]
+                  for s in range(cfg.spp))
+        img = (acc / cfg.spp).reshape(16, 16, 3)
         return jnp.mean((img - target) ** 2)
 
     loss_u, g_u = jax.value_and_grad(loss_fn)(scene.bsdf_params)
     np.testing.assert_allclose(float(loss_s), float(loss_u), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_s), np.asarray(g_u),
-                               rtol=1e-4, atol=1e-7)
-
-
-def test_grad_sharded_fast_brute_path():
-    """The brute-kernel (non-BVH) fused gradient also shards."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from gpuspectral_tpu.integrator.mega_grad import (
-        mega_grad_eligible, render_mega_diff)
-    from gpuspectral_tpu.parallel.dist import make_mesh, grad_step_sharded_fast
-    from gpuspectral_tpu.scene import load_mitsuba_scene
-    from gpuspectral_tpu.utils import RenderConfig
-
-    scene, _ = load_mitsuba_scene("scenes/cornell/scene.xml")
-    cfg = RenderConfig(width=32, height=32, spp=4, max_depth=3,
-                       ray_batch=1024, use_bvh=False, jitter=False)
-    assert mega_grad_eligible(scene, cfg)
-    rng = np.random.default_rng(8)
-    target = rng.uniform(0.0, 1.0, (32, 32, 3)).astype(np.float32)
-
-    mesh = make_mesh(8, spp_shards=2)
-    loss_s, g_s = grad_step_sharded_fast(
-        scene, cfg, mesh, target, timestamp0=0, interpret=True)
-
-    def loss_fn(bp):
-        img = render_mega_diff(
-            scene.replace(bsdf_params=bp), cfg, 0, interpret=True)
-        return jnp.mean((img - target) ** 2)
-
-    loss_u, g_u = jax.value_and_grad(loss_fn)(scene.bsdf_params)
-    np.testing.assert_allclose(float(loss_s), float(loss_u), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_s), np.asarray(g_u),
-                               rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(np.asarray(g_s), np.asarray(g_u), rtol=1e-4, atol=1e-7)
